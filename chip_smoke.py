@@ -1,0 +1,446 @@
+"""Smoke run of evossearch_tpu_torch on one CUDA GPU.
+
+    python3 chip_smoke.py
+
+Builds the two top-k candidate kernels from evossearch_tpu_torch/ops/csrc
+with nvcc, holds each against its plain PyTorch version and a dense oracle,
+times them, then drives the main path at full ViT-B/32 width (random
+weights, bf16 compute and store): the HTTP app indexes 64 JPEGs and answers
+/search and /search_by_image, and text searches over two seeded stores of
+262,144 and 1,048,576 rows reach the block and the tree kernel through the
+engine's normal routing.
+
+Every line on stdout but the last is one result: a JSON object, or the
+card's name and power limit as nvidia-smi reports them. The last line is
+{"ok": true, "device": {...}}. Any failed check raises and the script
+exits non-zero with no last line. Without a GPU it exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+D = 512          # ViT-B/32 embedding width
+Q = 48           # query batch of the kernel checks (the MAX_RESULTS batch)
+QUERY_BUCKETS = (1, 8, 64, 128)  # query rows the serving path pads a batch to
+N_BLOCK = 1 << 18   # smallest store the kernels serve: the block kernel at k=48
+N_TREE = 1 << 20    # the tree kernel at k=12 and k=48
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 FMA
+SCORE_ATOL = 1e-5  # dense-oracle score tolerance: summation order only
+REPLACES = {
+    "block": "evossearch_tpu/ops/topk_pallas.py:279",
+    "tree": "evossearch_tpu/ops/topk_pallas.py:579",
+}
+SOURCES = {
+    "block": "evossearch_tpu_torch/ops/csrc/topk_block.cu",
+    "tree": "evossearch_tpu_torch/ops/csrc/topk_tree.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def exact_inputs(n: int, dtype, gen: torch.Generator):
+    """Rows and 128 queries of small integers over 16: every dot is exact
+    in float32 in any summation order, and equal scores tie for real."""
+    emb = torch.randint(-4, 5, (n, D), generator=gen, device="cuda") / 16.0
+    q = torch.randint(-4, 5, (max(QUERY_BUCKETS), D), generator=gen,
+                      device="cuda") / 16.0
+    return emb.to(dtype).contiguous(), q.float()
+
+
+def unit_rows(n: int, gen: torch.Generator, device="cuda") -> torch.Tensor:
+    x = torch.randn(n, D, generator=gen, device=device)
+    return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+
+def same_ranking(s, i, s_ref, i_ref) -> bool:
+    """Top-k equal to the oracle's: scores within SCORE_ATOL, and the same
+    row at every rank whose oracle score is more than SCORE_ATOL from its
+    neighbours' (only a near-tie may order by summation noise)."""
+    s, i, s_ref, i_ref = (np.asarray(a) for a in (s, i, s_ref, i_ref))
+    if s.shape != s_ref.shape or not np.allclose(s, s_ref, rtol=0, atol=SCORE_ATOL):
+        return False
+    gap = np.full(s_ref.shape, np.inf)
+    d = np.abs(np.diff(s_ref, axis=-1))
+    gap[..., 1:] = d
+    gap[..., :-1] = np.minimum(gap[..., :-1], d)
+    clear = gap > SCORE_ATOL
+    return bool(np.array_equal(i[clear], i_ref[clear]))
+
+
+def bound_ms(name: str, n: int, q: int, dtype, out) -> tuple[float, str]:
+    """Least time for one candidate pass: each input byte read once and
+    each output byte written once at the HBM rate, against 2*q*n*d
+    operations at the peak rate for the corpus dtype."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = n * D * itemsize + q * D * 4
+    nbytes += sum(t.numel() * t.element_size() for t in out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * q * n * D / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_topk(emb: torch.Tensor, q: torch.Tensor, k: int):
+    """The yardstick: one cuBLAS product with float32 scores, then
+    torch.topk (no tie contract). Timed only; the port never calls it."""
+    scores = torch.mm(q.to(emb.dtype), emb.t(), out_dtype=torch.float32) \
+        if emb.dtype == torch.bfloat16 else torch.mm(q, emb.t())
+    return torch.topk(scores, k, dim=1)
+
+
+def kernel_checks(topk, search) -> dict:
+    """Phase 3: each kernel against its plain version, its final result
+    against the dense oracle, its timings and its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    cases = [("block", N_BLOCK, 48), ("tree", N_TREE, 48), ("tree", N_TREE, 12)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, n, k in cases:
+            dname = "bf16" if dtype == torch.bfloat16 else "f32"
+            if name == "block":
+                cand = lambda e, qq: topk.block_candidates(e, qq, topk.default_levels(n))
+                plain = lambda e, qq: topk.block_candidates_plain(e, qq, topk.default_levels(n))
+                fused = topk.fused_topk_batch
+            else:
+                tile = topk._tree_tile_rows(dtype)
+                cand = lambda e, qq: topk.tree_candidates(e, qq, tile)
+                plain = lambda e, qq: topk.tree_candidates_plain(e, qq, tile)
+                fused = topk.fused_topk_batch_tree
+            check(topk.use_tree_kernel(n, k, dtype) == (name == "tree"),
+                  f"routing sends N={n} k={k} {dname} to {name}")
+            # (a) exact-dot inputs: bit for bit at Q and at every query
+            # bucket of the serving path (the candidates do not depend on
+            # k), certified rows and fallback
+            emb, q_all = exact_inputs(n, dtype, gen)
+            q = q_all[:Q]
+            bit_equal_q = (Q,) + (QUERY_BUCKETS if k == 48 else ())
+            for nq in bit_equal_q:
+                got = cand(emb, q_all[:nq])
+                torch.cuda.synchronize()
+                want = plain(emb, q_all[:nq])
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{name} {dname} candidates at Q={nq} equal the plain "
+                      "version bit for bit")
+                del got, want
+            qb = topk.prepare_queries(q, emb)
+            o_s, o_i = topk.stable_topk(topk.dense_scores(emb, qb), k)
+            ok, s, i = fused(emb, q, k)
+            okc = ok.cpu()
+            check(torch.equal(s[ok], o_s[ok]) and torch.equal(i[ok], o_i[ok]),
+                  f"{name} {dname} certified rows equal the oracle (exact dots)")
+            fs, fi = search.pallas_search_batch(emb, q, k)
+            check(np.array_equal(fs, o_s.cpu().numpy())
+                  and np.array_equal(fi, o_i.cpu().numpy()),
+                  f"{name} {dname} results with fallback equal the oracle")
+            exact_cert = float(okc.float().mean())
+            # (b) random unit rows
+            emb = unit_rows(n, gen).to(dtype).contiguous()
+            q = unit_rows(Q, gen)
+            ok, s, i = fused(emb, q, k)
+            o_s, o_i = topk.stable_topk(
+                topk.dense_scores(emb, topk.prepare_queries(q, emb)), k)
+            okn = ok.cpu().numpy()
+            check(same_ranking(s.cpu().numpy()[okn], i.cpu().numpy()[okn],
+                               o_s.cpu().numpy()[okn], o_i.cpu().numpy()[okn]),
+                  f"{name} {dname} k={k} certified rows equal the oracle (unit rows)")
+            # the kernel's candidate scores against the plain version's on
+            # unit rows: equal up to float32 summation order
+            out = cand(emb, q)
+            ref = plain(emb, q)
+            err = max(float((a - b).abs().max()) for a, b in zip(out, ref)
+                      if a.dtype == torch.float32)
+            check(err <= SCORE_ATOL, f"{name} {dname} candidate scores within "
+                  f"{SCORE_ATOL} of the plain version on unit rows ({err})")
+            del ref
+            # (c) timings, (d) bound
+            b_ms, b_by = bound_ms(name, n, Q, dtype, out)
+            row = {
+                "phase": "kernel_check", "kernel": name, "dtype": dname,
+                "n": n, "d": D, "q": Q, "k": k,
+                "bit_equal_plain_at_q": list(bit_equal_q), "max_abs_err": err,
+                "cert_rate_exact_inputs": exact_cert,
+                "cert_rate_unit_rows": float(okn.mean()),
+                "ms": time_ms(lambda: cand(emb, q)),
+                "ms_q1": time_ms(lambda: cand(emb, q[:1])),
+                "plain_ms": time_ms(lambda: plain(emb, q)),
+                "merge_ms": time_ms(lambda: fused(emb, q, k)),
+                "library_ms": time_ms(lambda: library_topk(emb, q, k)),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit(row)
+            rows[(name, dname, k)] = row
+            del emb, q, q_all, out
+            torch.cuda.empty_cache()
+    return rows
+
+
+def write_jpegs(folder: Path, count: int) -> list[Path]:
+    """Seeded JPEGs of mixed sizes, one of them a panorama."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    sizes = [(480, 640), (640, 480), (224, 224), (300, 500), (768, 1024),
+             (1080, 1920), (375, 500), (512, 512)]
+    paths = []
+    for i in range(count):
+        h, w = (400, 4000) if i == count - 1 else sizes[i % len(sizes)]
+        base = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+        img = Image.fromarray(base).resize((w, h), Image.Resampling.BILINEAR)
+        p = folder / f"img_{i:03d}.jpg"
+        img.save(p, quality=90)
+        paths.append(p)
+    return paths
+
+
+def write_store(folder: Path, n: int, gen: torch.Generator) -> None:
+    """A bf16 ViT-B/32 store of ``n`` seeded unit rows."""
+    from evossearch_tpu_torch.index import IndexWriter
+
+    folder.mkdir(parents=True, exist_ok=True)
+    w = IndexWriter.create(folder, model="ViT-B/32", dim=D, dtype_name="bfloat16")
+    chunk = 1 << 18
+    for start in range(0, n, chunk):
+        m = min(chunk, n - start)
+        emb = unit_rows(m, gen).cpu().numpy()
+        paths = [str(folder / f"row_{start + j}.jpg") for j in range(m)]
+        meta = [{"path": p, "mtime": 0.0, "size": 0} for p in paths]
+        w.append(emb, paths, meta)
+    w.finalize()
+
+
+def tower_times(engine) -> dict:
+    """Device time of the image tower on one indexing batch of 224 px
+    inputs and of the text tower on one query, CUDA events."""
+    from evossearch_tpu_torch.models import encode_image, encode_text
+
+    spec, dtype = engine.spec, engine._compute_dtype
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = engine._index_batch
+    images = torch.randn(batch, spec.image_size, spec.image_size, 3,
+                         generator=gen, device="cuda").to(dtype)
+    tokens = torch.randint(0, spec.vocab_size, (1, spec.context_length),
+                           generator=gen, device="cuda")
+    image_ms = time_ms(lambda: encode_image(engine.params, images, dtype), reps=10)
+    text_ms = time_ms(lambda: encode_text(engine.params, tokens, dtype), reps=10)
+    return {"phase": "towers", "image_batch": batch, "image_tower_ms": image_ms,
+            "image_tower_images_per_s": batch / image_ms * 1e3,
+            "text_tower_ms_batch1": text_ms}
+
+
+def main_path(topk, search) -> dict:
+    """Phases 4 and 5 in a temporary directory that is removed after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run_main_path(topk, search, Path(tmp))
+
+
+def run_main_path(topk, search, work: Path) -> dict:
+    """Phases 4 and 5, one run of the main path with the launch counts
+    set to 0 just before and read just after."""
+    from evossearch_tpu_torch.core import Config
+    from evossearch_tpu_torch.engine import SearchEngine
+    from evossearch_tpu_torch.index.store import IndexReader, as_float32
+    from evossearch_tpu_torch.server import TestClient, create_app
+
+    for key in list(os.environ):
+        if key.startswith("EVOSSEARCH_"):
+            del os.environ[key]
+    cfg = Config(env_path=work / "missing.env")
+    imgs = work / "photos"
+    imgs.mkdir()
+    jpegs = write_jpegs(imgs, 64)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    small, large = work / "store_262144", work / "store_1048576"
+    t0 = time.perf_counter()
+    write_store(small, N_BLOCK, gen)
+    write_store(large, N_TREE, gen)
+    emit({"phase": "setup", "stores_written_s": time.perf_counter() - t0})
+
+    app = create_app(cfg=cfg, device="cuda")
+    engine = app.engine
+    check(engine.device.type == "cuda", "the app's engine runs on the GPU")
+    t0 = time.perf_counter()
+    _ = engine.params
+    engine.warmup()
+    torch.cuda.synchronize()
+    emit({"phase": "model_init", "spec": engine.spec.name,
+          "compute_dtype": cfg.COMPUTE_DTYPE, "store_dtype": cfg.STORE_DTYPE,
+          "seconds": time.perf_counter() - t0})
+    emit(tower_times(engine))
+    client = TestClient(app)
+
+    for k in topk.LAUNCHES:
+        topk.LAUNCHES[k] = 0
+    # -- phase 4: the HTTP routes --
+    t0 = time.perf_counter()
+    r = client.post("/index", json_body={"folder": str(imgs)})
+    index_s = time.perf_counter() - t0
+    check(r.status_code == 200 and r.json == {"success": True, "count": 64},
+          f"/index indexed 64 images ({r.status_code} {r.json})")
+    search_ms = []
+    for text in ("a photo of a dog", "a red car", "mountains at sunset",
+                 "a photo of a dog"):
+        t0 = time.perf_counter()
+        r = client.post("/search", json_body={
+            "folder": str(imgs), "query": text, "limit": 12})
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+        res = r.json["results"]
+        sims = [x["similarity"] for x in res]
+        check(r.status_code == 200 and len(res) == 12
+              and all(math.isfinite(v) for v in sims)
+              and sims == sorted(sims, reverse=True),
+              f"/search answered 12 ranked results ({r.status_code})")
+    image_ms = []
+    for p in jpegs[:3]:
+        t0 = time.perf_counter()
+        r = client.post(
+            "/search_by_image", data={"folder": str(imgs), "limit": "6"},
+            files={"image": ("query.jpg", p.read_bytes())},
+        )
+        image_ms.append((time.perf_counter() - t0) * 1e3)
+        res = r.json["results"]
+        check(r.status_code == 200 and len(res) == 6
+              and res[0]["filename"] == p.name and res[0]["similarity"] > 0.99,
+              f"/search_by_image finds the uploaded {p.name} first")
+    emit({"phase": "http_main_path", "images": 64,
+          "index_s": index_s, "index_images_per_s": 64 / index_s,
+          "search_ms": search_ms, "search_by_image_ms": image_ms})
+
+    # -- phase 5: the kernels through the engine's normal routing --
+    results = {}
+    for folder, text, k in ((small, "a photo of a dog", 48),
+                            (large, "a photo of a cat", 12),
+                            (large, "a photo of a cat", 48)):
+        t0 = time.perf_counter()
+        out = engine.search_text(str(folder), text, k)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(out is not None, f"{folder.name} is indexed")
+        results[(folder.name, k)] = (out, text, ms)
+    launches = dict(topk.LAUNCHES)
+    emit({"phase": "main_path_launches", "launches": launches})
+    check(launches["block"] > 0, "the block kernel ran on the main path")
+    check(launches["tree"] > 0, "the tree kernel ran on the main path")
+
+    # -- correctness of what came out (after the counted run) --
+    for (name, k), ((scores, idx, reader), text, ms) in results.items():
+        entry, _ = engine._cached_index(str(work / name))
+        emb_d = engine._entry_emb(entry, reader)
+        q = torch.as_tensor(engine.encode_text(text), device="cuda")
+        o_s, o_i = search.exact_search_batch(emb_d, q, k)
+        check(same_ranking(scores[None], idx[None], o_s, o_i),
+              f"{name} k={k} equals the dense oracle on the card")
+        emit({"phase": "engine_search", "store": name, "k": k,
+              "kernel": "tree" if topk.use_tree_kernel(reader.count, k, emb_d.dtype) else "block",
+              "first_call_ms": ms, "equals_dense_oracle": True})
+    # the GPU's bf16 embeddings against the same weights in float32 on CPU
+    cpu_cfg = Config(env_path=work / "missing.env")
+    cpu_cfg.COMPUTE_DTYPE = "float32"
+    ref = SearchEngine(cfg=cpu_cfg, device="cpu")
+    reader = IndexReader.open(imgs)
+    rows = {p: r for r, p in enumerate(reader.paths)}
+    stored = as_float32(reader.embeddings())
+    picks = [jpegs[0], jpegs[-1]]  # a photo and the panorama
+    from evossearch_tpu_torch.preprocess.io import load_image_rgb
+
+    want = ref.encode_images([load_image_rgb(p) for p in picks])
+    got = stored[[rows[str(p)] for p in picks]]
+    cos_img = (want * got).sum(axis=1) / np.linalg.norm(got, axis=1)
+    cos_txt = float(ref.encode_text("a red car") @ engine.encode_text("a red car"))
+    emit({"phase": "reference_check", "image_cosine_bf16_gpu_vs_f32_cpu": cos_img.tolist(),
+          "text_cosine_bf16_gpu_vs_f32_cpu": cos_txt})
+    check(all(np.isfinite(stored).ravel()) and stored.shape == (64, D),
+          "stored embeddings are finite (64, 512)")
+    check(bool((cos_img > 0.99).all()) and cos_txt > 0.99,
+          "GPU bf16 embeddings agree with the float32 CPU encode")
+    ref.close()
+    engine.close()
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from evossearch_tpu_torch.index import search
+    from evossearch_tpu_torch.ops import _build, topk
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device": torch.cuda.get_device_name(0)})
+
+    t0 = time.perf_counter()
+    libs = _build.build()
+    build_s = time.perf_counter() - t0
+    regs = {
+        name: sorted({int(x) for x in re.findall(r"Used (\d+) registers", log["log"])})
+        for name, log in _build.BUILD_LOG.items()
+    }
+    emit({"phase": "build", "seconds": build_s, "arch": "sm_90a",
+          "libraries": {k: str(v.relative_to(Path.cwd())) if v.is_relative_to(Path.cwd())
+                        else str(v) for k, v in libs.items()},
+          "registers_per_thread": regs})
+
+    rows = kernel_checks(topk, search)
+    launches = main_path(topk, search)
+
+    kernels = []
+    for name in ("tree", "block"):
+        row = rows[(name, "bf16", 48)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    emit({"kernels": kernels})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

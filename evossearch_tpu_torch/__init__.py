@@ -1,0 +1,36 @@
+"""evossearch_tpu_torch — the PyTorch + CUDA port of evossearch_tpu.
+
+CLIP-based natural-language and image-to-image search over local photo
+folders, running on one NVIDIA GPU (Hopper, sm_90a) unless the caller
+asks for the CPU. ``evossearch_tpu`` (JAX) is the reference this package
+is tested against; it never imports it.
+
+Layer map (bottom-up):
+    core/        model constants, config (EVOSSEARCH_* env surface)
+    tokenizer/   byte-BPE CLIP text tokenizer (host-side)
+    models/      CLIP image+text towers (torch modules) + npz checkpoints
+    preprocess/  Pillow decode + resample/center-crop/normalize GEMMs
+    ops/         hand-written CUDA top-k candidate kernels + merge glue
+    index/       memory-mapped embedding shard store, builder, search
+    server/      stdlib WSGI micro-framework + HTTP API + SPA frontend
+    utils/       structured logging, timing, torch.profiler hooks
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy top-level exports: importing the package loads no torch code.
+    if name == "SearchEngine":
+        from .engine import SearchEngine
+
+        return SearchEngine
+    if name == "Config":
+        from .core import Config
+
+        return Config
+    if name == "create_app":
+        from .server import create_app
+
+        return create_app
+    raise AttributeError(f"module 'evossearch_tpu_torch' has no attribute {name!r}")

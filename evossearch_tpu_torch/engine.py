@@ -1,0 +1,923 @@
+"""SearchEngine — the engine layer tying tokenizer, CLIP towers, the fused
+preprocess and the shard store into the operations the HTTP layer needs.
+PyTorch counterpart of ``evossearch_tpu/engine.py`` (its main-path
+subset: exact search on one device, the host scan for over-budget
+corpora).
+
+  * the engine runs on one device, ``"cuda"`` unless the caller passes
+    ``device="cpu"``; with no GPU and no explicit device it raises;
+  * encoders run batched, padded to power-of-two buckets;
+  * loaded indexes are cached on the device keyed by manifest mtime, under
+    a device-memory budget with LRU eviction;
+  * weights come from a native npz checkpoint when configured, else a
+    seeded random init (``torch.Generator().manual_seed(0)``; the numbers
+    differ from the JAX package's ``jax.random.key(0)`` init).
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): IVF, the sharded kernel and data-parallel encode, the SQ8 tier,
+OpenAI/HF checkpoint conversion.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import os
+import threading
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from .core import CLIP_MODEL_SPECS, Config, config as default_config
+from .core.constants import CLIPModelSpec
+from .index import build_index
+from .index.store import IndexReader, as_float32
+from .tokenizer import load_tokenizer
+from .utils import Counters, StageTimer, get_logger
+
+log = get_logger("engine")
+
+_UNSET = object()  # _batcher's lock-free "not initialized" sentinel
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The engine's device: ``device`` as given, else the first GPU; with
+    no GPU a caller must ask for the CPU explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: pass device='cpu' to run on "
+                "the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to evossearch_tpu_torch yet (ROADMAP {item})"
+    )
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Smallest power-of-two >= n, capped."""
+    b = 1
+    while b < n and b < cap:
+        b <<= 1
+    return min(b, cap)
+
+
+class PendingEmbeddings:
+    """Deferred result of ``encode_prepared(..., fetch=False)``: the encode
+    is queued on the device; :meth:`resolve` copies the (n, embed_dim)
+    float32 embeddings to the host. Single-use."""
+
+    def __init__(self, buckets: list, n: int, engine: "SearchEngine"):
+        self._buckets = buckets
+        self._n = n
+        self._engine = engine
+
+    def resolve(self) -> np.ndarray:
+        eng = self._engine
+        if self._n == 0:
+            return np.zeros((0, eng.spec.embed_dim), np.float32)
+        with eng.timers.stage("prep_encode_fetch"):
+            out = [b.cpu().numpy() for b in self._buckets]
+        self._buckets = []  # free the device buffers promptly
+        emb = np.concatenate(out, axis=0)[: self._n]
+        eng.counters.add("images_encoded", self._n)
+        return emb
+
+
+def _canon(folder: str) -> str:
+    """Canonical cache/lock key for a folder (relative vs absolute,
+    ``a/../b`` and symlinks name one physical directory)."""
+    return os.path.realpath(folder)
+
+
+class SearchEngine:
+    def __init__(
+        self,
+        cfg: Config | None = None,
+        spec: CLIPModelSpec | None = None,
+        params=None,
+        device: str | torch.device | None = None,
+    ):
+        """``params``: a port :class:`~.models.CLIP` module, or the JAX
+        package's param pytree with numpy leaves (bridged by
+        ``params_from_numpy``); None loads ``CHECKPOINT_PATH`` or inits
+        randomly."""
+        self.cfg = cfg or default_config
+        self.device = resolve_device(device)
+        if self.cfg.INDEX_KIND == "ivf":
+            raise _not_ported("INDEX_KIND=ivf", "A12")
+        if self.cfg.SEARCH_KERNEL == "sharded":
+            raise _not_ported("SEARCH_KERNEL=sharded", "A13")
+        if (
+            self.cfg.SEARCH_KERNEL == "auto" and self.cfg.DP_ENCODE
+            and self.device.type == "cuda" and torch.cuda.device_count() > 1
+        ):
+            raise _not_ported(
+                "multi-GPU search and data-parallel encode (set "
+                "CUDA_VISIBLE_DEVICES to one card)", "A13",
+            )
+        if spec is None and self.cfg.CLIP_MODEL not in CLIP_MODEL_SPECS:
+            raise ValueError(
+                f"unknown CLIP model {self.cfg.CLIP_MODEL!r} "
+                f"(EVOSSEARCH_CLIP_MODEL); available: "
+                f"{', '.join(CLIP_MODEL_SPECS)}"
+            )
+        self.spec = spec or CLIP_MODEL_SPECS[self.cfg.CLIP_MODEL]
+        self.tokenizer = load_tokenizer(self.cfg.BPE_VOCAB_PATH or None)
+        if params is not None and not isinstance(params, torch.nn.Module):
+            from .models import params_from_numpy
+
+            params = params_from_numpy(params, self.spec)
+        self._params = None if params is None else params.to(self.device)
+        self._params_lock = threading.Lock()
+        if params is None and self.cfg.CHECKPOINT_PATH:
+            # eager: the checkpoint may carry another architecture, and
+            # loading overwrites self.spec, which index manifests capture
+            self._params = self._load_params()
+        self._index_cache: "OrderedDict[str, dict]" = OrderedDict()
+        self._cache_lock = threading.Lock()
+        self._max_cached_folders = 4
+        self._folder_locks: dict[str, threading.Lock] = {}
+        self._text_cache: "OrderedDict[str, object]" = OrderedDict()
+        self._text_cache_lock = threading.Lock()
+        self._mat_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._mat_cache_lock = threading.Lock()
+        self.timers = StageTimer()
+        self.counters = Counters()
+
+    def close(self) -> None:
+        """Stop the batcher worker threads."""
+        for attr in ("_batcher_inst", "_host_batcher_inst",
+                     "_text_batcher_inst", "_fused_batcher_inst"):
+            inst = self.__dict__.get(attr)
+            if inst is not None:
+                inst.close()
+
+    # -- model/params --
+
+    @property
+    def params(self):
+        """The CLIP module on the engine's device."""
+        with self._params_lock:
+            if self._params is None:
+                self._params = self._load_params()
+            return self._params
+
+    def _load_params(self):
+        from .models import CLIP, load_model
+
+        path = self.cfg.CHECKPOINT_PATH
+        if path:
+            if not path.endswith(".npz"):
+                raise _not_ported("OpenAI/HF checkpoint conversion", "A10")
+            model, spec = load_model(path, self.device)
+            self.spec = spec
+            log.info("loaded checkpoint %s (%s)", path, spec.name)
+            return model
+        log.warning(
+            "no checkpoint configured (EVOSSEARCH_CHECKPOINT); using "
+            "seeded random-init %s weights", self.spec.name,
+        )
+        gen = torch.Generator().manual_seed(0)
+        return CLIP(self.spec).init_random_(gen).to(self.device).eval()
+
+    @functools.cached_property
+    def _compute_dtype(self) -> torch.dtype:
+        return (
+            torch.bfloat16 if self.cfg.COMPUTE_DTYPE == "bfloat16"
+            else torch.float32
+        )
+
+    # -- encoders --
+
+    # index.builder._pipelined_build probes this to overlap batch N's
+    # device->host copy with batch N+1's encode
+    supports_deferred_fetch = True
+
+    def _encode_tokens(self, tokens) -> torch.Tensor:
+        """(B, ctx) token ids -> (B, embed_dim) float32 device rows."""
+        from .models import encode_text
+
+        t = torch.as_tensor(np.asarray(tokens), device=self.device)
+        return encode_text(self.params, t, self._compute_dtype)
+
+    def _prep_encode(self, canvases, a_h_u, a_w_u, size_idx) -> torch.Tensor:
+        """Fused resample + crop + normalize + image tower on the device."""
+        from .models import encode_image
+        from .preprocess import device_preprocess_indexed
+
+        x = device_preprocess_indexed(
+            canvases, a_h_u, a_w_u, size_idx, out_dtype=self._compute_dtype
+        )
+        return encode_image(self.params, x, self._compute_dtype)
+
+    @property
+    def _index_batch(self) -> int:
+        """Images per encode in the indexing pipeline (and the bucket cap)."""
+        return self.cfg.INDEX_BATCH or max(self.cfg.BATCH_SIZE, 128)
+
+    def _device_mats(self, mats: tuple) -> tuple:
+        """Device-resident LRU of per-batch resample matrices, keyed by
+        content: a homogeneous folder ships identical stacks every batch."""
+        key = tuple(
+            (m.shape, hashlib.blake2b(m.tobytes(), digest_size=16).digest())
+            for m in mats
+        )
+        with self._mat_cache_lock:
+            cached = self._mat_cache.get(key)
+            if cached is not None:
+                self._mat_cache.move_to_end(key)
+                return cached
+        out = tuple(torch.from_numpy(m).to(self.device) for m in mats)
+        with self._mat_cache_lock:
+            self._mat_cache[key] = out
+            self._mat_cache.move_to_end(key)
+            while len(self._mat_cache) > 16:
+                self._mat_cache.popitem(last=False)
+        return out
+
+    def encode_prepared(
+        self, canvases: np.ndarray, a_h_u: np.ndarray, a_w_u: np.ndarray,
+        size_idx: np.ndarray, fetch: bool = True,
+    ):
+        """Host-prepared batch (canvases + unique-size resample matrices +
+        per-image size index) -> (B, embed_dim) embeddings, padded to a
+        bucket size. Two buckets in flight: bucket i+1's upload and encode
+        are queued before bucket i is copied back.
+
+        ``fetch=False`` returns a :class:`PendingEmbeddings` whose
+        ``resolve()`` does the device->host copy later."""
+        n = canvases.shape[0]
+        if n == 0:
+            empty = np.zeros((0, self.spec.embed_dim), np.float32)
+            return empty if fetch else PendingEmbeddings([], 0, self)
+        b = _bucket(n, max(self._index_batch, 1))
+        if n < b or n % b:
+            pad = -(-n // b) * b - n
+            canvases = np.concatenate(
+                [canvases, np.zeros((pad,) + canvases.shape[1:], canvases.dtype)]
+            )
+            size_idx = np.concatenate([size_idx, np.zeros(pad, size_idx.dtype)])
+        a_h_d, a_w_d = self._device_mats((a_h_u, a_w_u))
+        out = []
+        in_flight: list = []
+        with self.timers.stage("prep_encode"):
+            for start in range(0, canvases.shape[0], b):
+                sl = slice(start, start + b)
+                self.counters.add("upload_canvas_bytes", int(canvases[sl].nbytes))
+                c = torch.from_numpy(canvases[sl]).to(self.device)
+                idx = torch.from_numpy(size_idx[sl]).to(self.device)
+                in_flight.append(self._prep_encode(c, a_h_d, a_w_d, idx))
+                if fetch and len(in_flight) >= 2:
+                    out.append(in_flight.pop(0).cpu().numpy())
+            if not fetch:
+                return PendingEmbeddings(in_flight, n, self)
+            out.extend(o.cpu().numpy() for o in in_flight)
+        emb = np.concatenate(out, axis=0)[:n]
+        self.counters.add("images_encoded", n)
+        return emb
+
+    @staticmethod
+    def _as_rgb(img) -> np.ndarray:
+        if isinstance(img, np.ndarray):
+            return img
+        if img.mode != "RGB":
+            img = img.convert("RGB")
+        return np.asarray(img, dtype=np.uint8)
+
+    def encode_images(self, images: list) -> np.ndarray:
+        """PIL images / uint8 RGB arrays -> (B, embed_dim) L2-normalized
+        float32 embeddings."""
+        from .preprocess import prepare_batch
+        from .preprocess.pipeline import MAX_UNIQUE_SIZES
+
+        if len(images) == 0:
+            return np.zeros((0, self.spec.embed_dim), np.float32)
+        arrays = [self._as_rgb(img) for img in images]
+        # groups of <= MAX_UNIQUE_SIZES distinct sizes bound the
+        # per-unique-size resample matrices
+        groups: list[list] = [[]]
+        sizes: set = set()
+        for a in arrays:
+            hw = a.shape[:2]
+            if hw not in sizes and len(sizes) >= MAX_UNIQUE_SIZES:
+                groups.append([])
+                sizes = set()
+            groups[-1].append(a)
+            sizes.add(hw)
+        outs = []
+        for group in groups:
+            with self.timers.stage("preprocess"):
+                prepared = prepare_batch(group, target=self.spec.image_size)
+            outs.append(self.encode_prepared(*prepared))
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
+
+    def encode_image_device(self, img) -> torch.Tensor:
+        """One image -> (1, embed_dim) float32 row left on the device, so
+        the search that follows needs no host round trip for the query."""
+        from .preprocess import prepare_batch
+
+        with self.timers.stage("preprocess"):
+            prepared = prepare_batch(
+                [self._as_rgb(img)], target=self.spec.image_size
+            )
+        pend = self.encode_prepared(*prepared, fetch=False)
+        self.counters.add("images_encoded", 1)  # resolve() is never called
+        return pend._buckets[0][0:1]
+
+    def encode_text(self, text: str) -> np.ndarray:
+        """Query text -> (embed_dim,) L2-normalized float32 embedding.
+        With the byte-level fallback tokenizer long queries are truncated;
+        with a real vocab an overflow raises like ``clip.tokenize``."""
+        emb = self._encode_text_device(text)  # device row or cached numpy
+        if isinstance(emb, torch.Tensor):
+            emb = emb.cpu().numpy()
+        return np.asarray(emb, np.float32)[0]
+
+    def _encode_text_device(self, text: str):
+        """encode_text leaving the embedding on the device as a (1, d)
+        row, behind a small LRU of repeated queries."""
+        with self._text_cache_lock:
+            cached = self._text_cache.get(text)
+            if cached is not None:
+                self._text_cache.move_to_end(text)
+                self.counters.add("text_cache_hits")
+                return cached
+        with self.timers.stage("encode_text"):
+            tokens = self.tokenizer.tokenize(
+                [text], self.spec.context_length,
+                truncate=self.tokenizer.fallback,
+            )
+            batcher = self._text_batcher
+            if batcher is not None:
+                emb = batcher.submit(np.asarray(tokens[0], np.int32))
+            else:
+                emb = self._encode_tokens(tokens)
+        self.counters.add("texts_encoded")
+        self._text_cache_put(text, emb)
+        return emb
+
+    def _text_cache_put(self, text: str, emb) -> None:
+        with self._text_cache_lock:
+            self._text_cache[text] = emb
+            self._text_cache.move_to_end(text)
+            while len(self._text_cache) > 1024:
+                self._text_cache.popitem(last=False)
+
+    # -- index operations --
+
+    def index_folder(
+        self, folder: str, resume: bool = False, incremental: bool | None = None
+    ) -> int:
+        """Batched (re)index of a folder; returns row count (0 = no images)."""
+        if incremental is None:
+            incremental = self.cfg.INCREMENTAL_INDEX
+        with self._folder_lock(folder), self.timers.stage("index_folder"):
+            count = build_index(
+                folder,
+                pipeline_encoder=self,
+                incremental=incremental,
+                model_name=self.spec.name,
+                dim=self.spec.embed_dim,
+                batch_size=self._index_batch,
+                dtype_name=self.cfg.STORE_DTYPE,
+                extensions=self.cfg.SUPPORTED_EXTENSIONS,
+                index_folder_name=self.cfg.INDEX_FOLDER_NAME,
+                resume=resume,
+                rows_per_shard=self.cfg.SHARD_SIZE,
+                fast_decode=self.cfg.FAST_DECODE,
+                decode_short_side=(
+                    self.cfg.DECODE_SHORT_SIDE or self.spec.image_size
+                ),
+            )
+        with self._cache_lock:
+            self._index_cache.pop(_canon(folder), None)
+        return count
+
+    def _folder_lock(self, folder: str) -> threading.Lock:
+        with self._cache_lock:
+            return self._folder_locks.setdefault(_canon(folder), threading.Lock())
+
+    def open_index(self, folder: str) -> IndexReader | None:
+        from pathlib import Path
+
+        reader = IndexReader.open(folder, self.cfg.INDEX_FOLDER_NAME)
+        if (
+            reader is None
+            and self.cfg.MIGRATE_LEGACY
+            # take the folder lock only when legacy artifacts exist: it is
+            # shared with /index runs
+            and (Path(folder) / self.cfg.INDEX_FOLDER_NAME / "index.faiss").exists()
+        ):
+            from .index.legacy import migrate_legacy_index
+
+            with self._folder_lock(folder):
+                reader = IndexReader.open(folder, self.cfg.INDEX_FOLDER_NAME)
+                if reader is None:
+                    migrated = migrate_legacy_index(
+                        folder, self.spec.name, self.spec.embed_dim,
+                        self.cfg.INDEX_FOLDER_NAME,
+                    )
+                    # a 0-row legacy index migrates to an empty index
+                    if migrated is not None:
+                        reader = IndexReader.open(
+                            folder, self.cfg.INDEX_FOLDER_NAME
+                        )
+        return reader
+
+    def _cached_index(self, folder: str):
+        """Per-folder search-state cache, invalidated by manifest mtime.
+        Returns (entry, reader) or (None, None) when not indexed."""
+        from .index.store import index_dir
+
+        key = _canon(folder)
+        manifest_path = (
+            index_dir(folder, self.cfg.INDEX_FOLDER_NAME) / "manifest.json"
+        )
+        mtime = None
+        # retried once: a publish's two renames leave a short window with
+        # no manifest.json
+        for attempt in (0, 1):
+            try:
+                mtime = manifest_path.stat().st_mtime
+                break
+            except OSError:
+                if attempt == 0:
+                    time.sleep(0.002)
+        with self._cache_lock:
+            cached = self._index_cache.get(key)
+            if cached is not None and mtime is not None and cached["mtime"] == mtime:
+                self._index_cache.move_to_end(key)
+                return cached, cached["reader"]
+        if mtime is None:
+            return None, None
+        reader = self.open_index(folder)
+        if reader is None:
+            return None, None
+        if reader.model != self.spec.name:
+            log.warning(
+                "index in %s was built with model %r but the server runs %r "
+                "— results will be wrong until the folder is re-indexed",
+                folder, reader.model, self.spec.name,
+            )
+        with self._cache_lock:
+            # stamped with the mtime statted BEFORE open, so a re-index
+            # finalizing meanwhile costs one re-open, never a stale entry
+            entry = {"mtime": mtime, "reader": reader, "lock": threading.Lock()}
+            self._index_cache[key] = entry
+            self._index_cache.move_to_end(key)
+            while len(self._index_cache) > self._max_cached_folders:
+                self._index_cache.popitem(last=False)
+        return entry, reader
+
+    def _resolve_kernel(self) -> str:
+        """auto -> best (one device); xla | pallas | host as configured."""
+        kind = self.cfg.SEARCH_KERNEL
+        return "best" if kind == "auto" else kind
+
+    # -- micro-batched serving path --
+
+    def _lazy_batcher(self, attr: str, factory):
+        """Double-checked lazy init shared by the batcher properties; every
+        batcher is disabled together when MICROBATCH_MS <= 0."""
+        inst = self.__dict__.get(attr, _UNSET)
+        if inst is not _UNSET:
+            return inst
+        with self._cache_lock:
+            if attr not in self.__dict__:
+                self.__dict__[attr] = (
+                    None if self.cfg.MICROBATCH_MS <= 0 else factory()
+                )
+            return self.__dict__[attr]
+
+    @property
+    def _batcher(self):
+        from .serving import MicroBatcher
+
+        return self._lazy_batcher("_batcher_inst", lambda: MicroBatcher(
+            self._execute_search_batch, window_ms=self.cfg.MICROBATCH_MS,
+        ))
+
+    @property
+    def _host_batcher(self):
+        # over-budget folders get their own worker: a host scan takes
+        # seconds and must not head-of-line block device searches
+        from .serving import MicroBatcher
+
+        return self._lazy_batcher("_host_batcher_inst", lambda: MicroBatcher(
+            self._execute_search_batch, window_ms=self.cfg.MICROBATCH_MS,
+        ))
+
+    @property
+    def _text_batcher(self):
+        from .serving import TextEncodeBatcher
+
+        return self._lazy_batcher(
+            "_text_batcher_inst", lambda: TextEncodeBatcher(self._encode_tokens)
+        )
+
+    @property
+    def _fused_batcher(self):
+        from .serving import TextSearchBatcher
+
+        return self._lazy_batcher("_fused_batcher_inst", lambda: TextSearchBatcher(
+            self._execute_text_search_batch, window_ms=self.cfg.MICROBATCH_MS,
+        ))
+
+    # -- device-memory budget for cached corpora --
+
+    @functools.cached_property
+    def _hbm_budget(self):
+        """Device-bytes budget, or None = unlimited. HBM_BUDGET_MB > 0 sets
+        it; 0 takes 80% of the GPU's memory (unlimited on the CPU)."""
+        mb = self.cfg.HBM_BUDGET_MB
+        if mb < 0:
+            return None
+        if mb > 0:
+            return mb << 20
+        if self.device.type != "cuda":
+            return None
+        return int(torch.cuda.get_device_properties(self.device).total_memory * 0.8)
+
+    def hbm_snapshot(self) -> dict:
+        """Device-byte accounting for /stats."""
+        budget = self._hbm_budget
+        entries = {}
+        with self._cache_lock:
+            for key, e in self._index_cache.items():
+                entries[key] = {
+                    "device_bytes": e.get("device_bytes", 0),
+                    "fits_device": e.get("fits_device"),
+                    "tiers": ["emb"] if e.get("emb") is not None else [],
+                }
+        return {
+            "budget_bytes": budget,
+            "reserved_bytes": sum(e["device_bytes"] for e in entries.values()),
+            "folders": entries,
+        }
+
+    def _corpus_device_bytes(self, reader) -> int:
+        itemsize = 2 if reader.dtype_name == "bfloat16" else 4
+        return reader.count * reader.dim * itemsize
+
+    def _fits_device(self, entry, reader) -> bool:
+        """Whether this corpus may ever be materialized on the device;
+        cached per entry, the over-budget verdict logged once."""
+        fits = entry.get("fits_device")
+        if fits is None:
+            budget = self._hbm_budget
+            need = self._corpus_device_bytes(reader)
+            fits = budget is None or need <= budget
+            if not fits:
+                log.warning(
+                    "corpus of %d rows (%.2f GB %s) exceeds the device "
+                    "budget (%.2f GB) — routing queries to the host scan; "
+                    "raise EVOSSEARCH_HBM_BUDGET_MB to search it on device",
+                    reader.count, need / 2**30, reader.dtype_name,
+                    budget / 2**30,
+                )
+            entry["fits_device"] = fits
+        return fits
+
+    def _reserve_device_bytes(self, entry, need: int) -> None:
+        """Charge ``need`` bytes to ``entry``, evicting OTHER entries'
+        device corpora LRU-first until the total fits the budget. Entries
+        mid-materialization (lock held) are skipped. Caller holds
+        entry['lock']."""
+        budget = self._hbm_budget
+        with self._cache_lock:
+            entry["device_bytes"] = entry.get("device_bytes", 0) + need
+            if budget is None:
+                return
+            total = sum(
+                e.get("device_bytes", 0) for e in self._index_cache.values()
+            )
+            if total <= budget:
+                return
+            for other in list(self._index_cache.values()):  # LRU-first
+                if other is entry or not other.get("device_bytes"):
+                    continue
+                if not other["lock"].acquire(blocking=False):
+                    continue
+                try:
+                    other.pop("emb", None)
+                    total -= other["device_bytes"]
+                    other["device_bytes"] = 0
+                    self.counters.add("hbm_evictions")
+                finally:
+                    other["lock"].release()
+                if total <= budget:
+                    return
+
+    def _release_device_bytes(self, entry, need: int) -> None:
+        """Roll back a reservation whose materialization failed."""
+        with self._cache_lock:
+            entry["device_bytes"] = max(0, entry.get("device_bytes", 0) - need)
+
+    def _entry_emb(self, entry, reader) -> torch.Tensor:
+        """The folder's corpus on the device (bf16 stores as bfloat16),
+        materialized once per cache entry. Readers keep a local reference:
+        eviction pops the key without the reader holding a lock."""
+        emb = entry.get("emb")
+        if emb is None:
+            with entry["lock"]:
+                emb = entry.get("emb")
+                if emb is None:
+                    need = self._corpus_device_bytes(reader)
+                    self._reserve_device_bytes(entry, need)
+                    try:
+                        emb = self._to_device(reader)
+                    except BaseException:
+                        self._release_device_bytes(entry, need)
+                        raise
+                    entry["emb"] = emb
+        return emb
+
+    def _to_device(self, reader) -> torch.Tensor:
+        """Copy the store's shards into one (count, dim) device tensor."""
+        bf16 = reader.dtype_name == "bfloat16"
+        emb = torch.empty(
+            (reader.count, reader.dim),
+            dtype=torch.bfloat16 if bf16 else torch.float32,
+            device=self.device,
+        )
+        row = 0
+        for shard in reader.shard_arrays():
+            host = torch.from_numpy(np.array(shard))  # a writable host copy
+            emb[row : row + shard.shape[0]] = (
+                host.view(torch.bfloat16) if bf16 else host
+            ).to(self.device)
+            row += shard.shape[0]
+        return emb
+
+    def _execute_search_batch(self, folder: str, queries, k: int):
+        """One batched search over a folder's cached corpus (device
+        kernels, or the host scan for an over-budget corpus)."""
+        entry, reader = self._cached_index(folder)
+        if reader is None:
+            raise LookupError("Folder not indexed")
+        k = min(k, reader.count)
+        if not self._fits_device(entry, reader):
+            return self._host_search_batch(queries, reader, k)
+        from .index.search import query_row_bucket
+
+        # pad the batch to the bucket ladder; extra rows repeat row 0 and
+        # their results are sliced away
+        q = queries.shape[0]
+        pad = query_row_bucket(q)
+        if pad > q:
+            if isinstance(queries, np.ndarray):
+                queries = np.concatenate([
+                    queries,
+                    np.broadcast_to(queries[:1], (pad - q,) + queries.shape[1:]),
+                ])
+            else:
+                queries = torch.cat([queries, queries[:1].expand(pad - q, -1)])
+        s, i = self._execute_search_batch_padded(entry, reader, queries, k)
+        return s[:q], i[:q]
+
+    def _host_search_batch(self, queries, reader, k: int):
+        """Over-budget corpus: exact scan in place over the mmap shards
+        (the SQ8 device tier of the JAX package is not ported)."""
+        if self.cfg.SQ8 != "off":
+            raise _not_ported(
+                "the SQ8 capacity tier (set EVOSSEARCH_SQ8=off for the "
+                "exact host scan)", "A11",
+            )
+        from .index.search import exact_search_host_reader_batch
+
+        if isinstance(queries, torch.Tensor):
+            queries = queries.cpu().numpy()
+        queries = np.asarray(queries, np.float32).reshape(-1, reader.dim)
+        self.counters.add("host_routed_queries", queries.shape[0])
+        return exact_search_host_reader_batch(reader, queries, k)
+
+    def _fused_text_eligible(self, entry, reader) -> bool:
+        """Whether a folder's fresh-text searches can take the fused
+        encode+search batch: a device kernel over a device-resident
+        corpus small enough for the packed float32 index encoding."""
+        from .index.search import _PACK_MAX_ROWS
+
+        return (
+            reader.count < _PACK_MAX_ROWS
+            and self._resolve_kernel() in ("xla", "pallas", "best")
+            and self._fits_device(entry, reader)
+        )
+
+    def _execute_text_search_batch(self, folder: str, tokens, k: int):
+        """A batch of fresh-text searches: text tower + corpus top-k with
+        one device->host copy of [scores | indices | ok | embeddings]
+        (serving.TextSearchBatcher's executor). Returns (scores (B, k'),
+        indices (B, k'), embeddings (B, d) float32 numpy)."""
+        entry, reader = self._cached_index(folder)
+        if reader is None:
+            raise LookupError("Folder not indexed")
+        k = min(k, reader.count)
+        b0 = tokens.shape[0]
+        if k == 0 or not self._fused_text_eligible(entry, reader):
+            # emptied or re-routed between submit and execution
+            emb = self._encode_tokens(tokens).cpu().numpy()
+            if k == 0:
+                return (
+                    np.zeros((b0, 0), np.float32), np.zeros((b0, 0), np.int64),
+                    emb,
+                )
+            s, i = self._execute_search_batch(folder, emb, k)
+            return s, i, emb
+        from .index.search import (
+            _unpack_with_fallback, choose_packed_flavor, packed_topk,
+            query_row_bucket,
+        )
+
+        pad = query_row_bucket(b0)
+        if pad > b0:
+            tokens = np.concatenate([
+                tokens,
+                np.broadcast_to(tokens[:1], (pad - b0,) + tokens.shape[1:]),
+            ])
+        emb_d = self._entry_emb(entry, reader)
+        flavor = choose_packed_flavor(
+            reader.count, reader.dim, k, emb_d.dtype, self._resolve_kernel(),
+            on_cpu=emb_d.device.type == "cpu",
+        )
+        q_d = self._encode_tokens(tokens)
+        outs = [
+            packed_topk(emb_d, q_d[start : start + 128], k, flavor)
+            for start in range(0, q_d.shape[0], 128)
+        ]
+        packed = torch.cat([torch.cat(outs), q_d], dim=1).cpu().numpy()
+        s, i = _unpack_with_fallback(packed[:, : 2 * k + 1], emb_d, q_d, k)
+        return s[:b0], i[:b0], packed[:b0, 2 * k + 1 :]
+
+    def _execute_search_batch_padded(self, entry, reader, queries, k: int):
+        from .index.search import (
+            best_exact_search_batch, exact_search_batch, pallas_search_batch,
+        )
+
+        kernel = self._resolve_kernel()
+        if kernel == "host":
+            return self._host_search_batch(queries, reader, k)
+        fn = {
+            "pallas": pallas_search_batch,
+            "best": best_exact_search_batch,
+        }.get(kernel, exact_search_batch)
+        return fn(self._entry_emb(entry, reader), queries, k)
+
+    def search_embedding(self, folder: str, query, k: int):
+        """Top-k over a folder's index. ``query`` is a (d,) or (1, d) row,
+        numpy or a device tensor (the text and image paths hand over device
+        rows). Returns (scores, indices, reader) or None when not indexed."""
+        entry, reader = self._cached_index(folder)
+        if reader is None:
+            return None
+        k = min(k, reader.count)
+        if k == 0:
+            return np.zeros((0,), np.float32), np.zeros((0,), np.int64), reader
+        if isinstance(query, np.ndarray):
+            query = np.asarray(query, np.float32)
+        q2d = query if query.ndim == 2 else query[None, :]
+        with self.timers.stage("search"):
+            if not self._fits_device(entry, reader):
+                batcher = self._host_batcher
+            elif self._resolve_kernel() == "host":
+                batcher = None
+            else:
+                batcher = self._batcher
+            if batcher is not None:
+                try:
+                    scores, idx = batcher.submit(_canon(folder), q2d, k)
+                except LookupError:
+                    return None  # index vanished before the worker ran
+            else:
+                s, i = self._execute_search_batch(folder, q2d, k)
+                scores, idx = s[0], i[0]
+        self.counters.add("queries")
+        return scores, idx, reader
+
+    def stored_embedding(self, folder: str, image_path: str):
+        """The stored row embedding of an indexed, UNCHANGED file (same
+        mtime and size), or None: the encode that would reproduce it can
+        be skipped."""
+        entry, reader = self._cached_index(folder)
+        if reader is None or not reader.metadata:
+            return None
+        rows = self._path_rows(entry, reader)
+        row = rows.get(str(image_path))
+        if row is None:
+            row = rows.get(os.path.abspath(image_path))
+        if row is None:
+            return None
+        try:
+            st = os.stat(image_path)
+        except OSError:
+            return None
+        meta = reader.metadata[row]
+        if meta.get("mtime") != st.st_mtime or meta.get("size") != st.st_size:
+            return None
+        for shard in reader.shard_arrays():
+            if row < shard.shape[0]:
+                return np.array(as_float32(shard[row]))  # off the mmap
+            row -= shard.shape[0]
+        return None
+
+    def search_text(self, folder: str, query: str, k: int):
+        """Text query -> top-k over a folder. Fresh texts against
+        device-resident corpora ride the fused text->search batcher; cache
+        hits and other routes encode, then search."""
+        with self._text_cache_lock:
+            cached = self._text_cache.get(query)
+            if cached is not None:
+                self._text_cache.move_to_end(query)
+        if cached is not None:
+            self.counters.add("text_cache_hits")
+            return self.search_embedding(folder, cached, k)
+        batcher = self._fused_batcher
+        if batcher is None:
+            return self.search_embedding(
+                folder, self._encode_text_device(query), k
+            )
+        entry, reader = self._cached_index(folder)
+        if reader is None:
+            return None
+        if reader.count == 0 or not self._fused_text_eligible(entry, reader):
+            return self.search_embedding(
+                folder, self._encode_text_device(query), k
+            )
+        tokens = self.tokenizer.tokenize(
+            [query], self.spec.context_length, truncate=self.tokenizer.fallback,
+        )
+        with self.timers.stage("search"):
+            try:
+                scores, idx, emb_row = batcher.submit(
+                    _canon(folder), np.asarray(tokens[0], np.int32),
+                    min(k, reader.count),
+                )
+            except LookupError:
+                return None  # index vanished between the check and dispatch
+        self.counters.add("texts_encoded")
+        self.counters.add("queries")
+        self._text_cache_put(query, emb_row)
+        return scores, idx, reader
+
+    def search_image(self, folder: str, pil_image, k: int):
+        emb = self.encode_image_device(pil_image)
+        return self.search_embedding(folder, emb, k)
+
+    def warmup(self) -> None:
+        """Run the text and image paths once before serving."""
+        with self.timers.stage("warmup"):
+            self.encode_text("warmup")
+            self.encode_images([np.zeros((64, 64, 3), np.uint8)])
+        log.info("engine warmed up (text + image paths)")
+
+    def is_indexed(self, folder: str) -> bool:
+        """Authoritative check (full validated open; may migrate legacy)."""
+        return self.open_index(folder) is not None
+
+    def is_indexed_fast(self, folder: str) -> bool:
+        """Cache-backed check for hot request paths."""
+        _, reader = self._cached_index(folder)
+        if reader is not None:
+            return True
+        return self.cfg.MIGRATE_LEGACY and self.is_indexed(folder)
+
+    @staticmethod
+    def _path_rows(entry: dict, reader) -> dict:
+        """Stored-spelling -> row lookup for a cached index entry."""
+        rows = entry.get("path_rows")
+        if rows is None:
+            rows = {p: r for r, p in enumerate(reader.paths)}
+            entry["path_rows"] = rows
+        return rows
+
+    def index_contains(self, folder: str, path: str) -> bool | None:
+        """Is ``path`` a row of ``folder``'s index (stored or absolute
+        spelling)? None when the folder isn't indexed."""
+        entry, reader = self._cached_index(folder)
+        if reader is None:
+            return None
+        rows = self._path_rows(entry, reader)
+        path = str(path)
+        if path in rows:
+            return True
+        head, name = os.path.split(path)
+        if not name or head != _canon(folder):
+            return False
+        prefixes = entry.get("path_prefixes")
+        if prefixes is None:
+            prefixes = frozenset(os.path.dirname(p) for p in reader.paths)
+            entry["path_prefixes"] = prefixes
+        return any(
+            (os.path.join(pref, name) if pref else name) in rows
+            for pref in prefixes
+        )

@@ -1,0 +1,159 @@
+"""Transformer building blocks for the CLIP towers — PyTorch modules.
+
+Counterpart of ``evossearch_tpu/models/layers.py``, with the same numerics:
+  * parameters are float32 and laid out as the JAX pytree's leaves (dense
+    kernels ``(in, out)``), one module per layer where the JAX package
+    stacks layers on a leading axis;
+  * products take their operands in the compute dtype (the activation's
+    dtype; kernels are cast to it) and accumulate AND return float32, as
+    ``preferred_element_type=float32`` does (``matmul_f32``), so no bf16
+    rounding happens inside a product and a dense layer's bias is added
+    in float32 before the one cast back to the compute dtype;
+  * LayerNorm runs in float32; attention logits and softmax in float32;
+  * CLIP uses quick-GELU (``x * sigmoid(1.702 x)``), not tanh-GELU.
+
+float32 products never use TF32 (``torch.backends.cuda.matmul.allow_tf32``
+stays False, PyTorch's default): the JAX package computes them at full
+float32 precision.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+LN_EPS = 1e-5  # OpenAI/HF CLIP LayerNorm epsilon
+
+
+@dataclasses.dataclass(frozen=True)
+class TowerConfig:
+    """Shape of one transformer tower."""
+
+    width: int
+    layers: int
+    heads: int
+    causal: bool = False
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 product of operands given in the compute dtype: float32
+    accumulation and result. On a GPU, bf16 operands go to the tensor
+    cores as a bf16 x bf16 -> float32 GEMM (bf16 products are exact in
+    float32, so this is the widened product in another summation order);
+    elsewhere they are widened exactly first. ``b`` is (K, N) or batched
+    like ``a``."""
+    if a.dtype != torch.bfloat16 or a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    out_shape = (*a.shape[:-1], b.shape[-1])
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    else:
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+    return out.reshape(out_shape)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None):
+    y = matmul_f32(x, kernel.to(x.dtype))
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm in float32 regardless of the compute dtype."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(width))
+        self.bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + LN_EPS)
+        return (y * self.scale.float() + self.bias.float()).to(dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with one fused (W, 3W) qkv projection."""
+
+    def __init__(self, width: int, heads: int, causal: bool):
+        super().__init__()
+        self.heads = heads
+        self.causal = causal
+        self.wqkv = nn.Parameter(torch.empty(width, 3 * width))
+        self.bqkv = nn.Parameter(torch.zeros(3 * width))
+        self.wo = nn.Parameter(torch.empty(width, width))
+        self.bo = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, w = x.shape
+        hd = w // self.heads
+        qkv = _dense(x, self.wqkv, self.bqkv)
+        q, k, v = (
+            a.reshape(b, t, self.heads, hd).transpose(1, 2)
+            for a in qkv.split(w, dim=-1)
+        )  # (B, H, T, hd)
+        logits = matmul_f32(q, k.transpose(-1, -2)) * (hd ** -0.5)
+        if self.causal:
+            keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+        weights = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = matmul_f32(weights, v).to(x.dtype)
+        out = out.transpose(1, 2).reshape(b, t, w)
+        return _dense(out, self.wo, self.bo)
+
+
+class MLP(nn.Module):
+    def __init__(self, width: int):
+        super().__init__()
+        self.w1 = nn.Parameter(torch.empty(width, 4 * width))
+        self.b1 = nn.Parameter(torch.zeros(4 * width))
+        self.w2 = nn.Parameter(torch.empty(4 * width, width))
+        self.b2 = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _dense(quick_gelu(_dense(x, self.w1, self.b1)), self.w2, self.b2)
+
+
+class Block(nn.Module):
+    """Pre-LN residual transformer block (OpenAI CLIP ordering)."""
+
+    def __init__(self, cfg: TowerConfig):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.width)
+        self.attn = Attention(cfg.width, cfg.heads, cfg.causal)
+        self.ln_2 = LayerNorm(cfg.width)
+        self.mlp = MLP(cfg.width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+def transformer(cfg: TowerConfig) -> nn.ModuleList:
+    return nn.ModuleList(Block(cfg) for _ in range(cfg.layers))
+
+
+def init_tower_(blocks: nn.ModuleList, cfg: TowerConfig, gen: torch.Generator):
+    """OpenAI CLIP's init scheme, in place (converted or saved checkpoints
+    overwrite it)."""
+    w, n = cfg.width, cfg.layers
+    proj_std = (w ** -0.5) * ((2 * n) ** -0.5)
+    attn_std = w ** -0.5
+    fc_std = (2 * w) ** -0.5
+    with torch.no_grad():
+        for blk in blocks:
+            blk.attn.wqkv.normal_(0.0, attn_std, generator=gen)
+            blk.attn.wo.normal_(0.0, proj_std, generator=gen)
+            blk.mlp.w1.normal_(0.0, fc_std, generator=gen)
+            blk.mlp.w2.normal_(0.0, proj_std, generator=gen)

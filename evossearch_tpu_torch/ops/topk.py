@@ -1,0 +1,355 @@
+"""Certified exact batched top-k: the two candidate kernels, their plain
+versions, and the merge + certificate glue around them.
+
+Counterpart of ``evossearch_tpu/ops/topk_pallas.py``. Each kernel makes
+ONE pass over an (N, d) corpus for up to 128 queries and keeps a few
+candidates per fixed partition of the rows, plus a bound on everything it
+dropped; a plain-torch merge then selects the top k from the candidates
+and certifies per query that nothing dropped could have entered it.
+Uncertified queries (adversarial mass ties) are the caller's to re-run on
+the dense exact path.
+
+``block`` (B2, ``csrc/topk_block.cu``): per 256-row block, the top
+  ``levels - 1`` rows under (score desc, row asc) and the ``levels``-th
+  score as the bound.
+``tree`` (B1, ``csrc/topk_tree.cu``): per (tile, residue class
+  ``row % 128``), the reference halving tree's top-2 rows and its
+  third-best score as the bound.
+
+Each wrapper (``block_candidates``, ``tree_candidates``) launches its CUDA
+kernel for a tensor on a CUDA device and runs the plain torch version
+(``*_plain``) only for a tensor on the CPU; anything else raises. The
+plain versions compute the same function and are what the CPU tests hold
+against the reference's Pallas kernels in interpret mode.
+
+Numerics: a bf16 corpus is scored against queries rounded to bf16 first,
+bf16 widened exactly to f32 and accumulated in f32; an f32 corpus in IEEE
+f32. Scores are f32 throughout. Tie contract: (score desc, row asc).
+Shapes: k <= 128, Q <= 128 per call, d % 128 == 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+LANES = 128
+NEG_INF = float(np.finfo(np.float32).min)
+
+# Rows per block of the block kernel; each block yields ``levels`` scores
+# and ``levels - 1`` rows (the last score is the certification bound).
+SUB_ROWS = 256
+LEVELS = 4
+_LEVELS3_MIN_ROWS = 4 << 20
+# Output rows of the block kernel are padded to whole 2048-row tiles (the
+# reference's grid), so the candidate layout matches it cell for cell.
+TILE_ROWS = 2048
+_SUBS_PER_TILE = TILE_ROWS // SUB_ROWS
+TREE_CLASSES = LANES
+# Exact top-(k + pad) fetch of the tree merge: a tie plateau wider than
+# the pad fails the counting certificate and takes the exact fallback.
+_TREE_FETCH_PAD = 32
+
+# Kernel launches per wrapper, counted where the CUDA kernel is launched
+# and nowhere else (plain CPU runs do not count).
+LAUNCHES = {"block": 0, "tree": 0}
+
+
+def default_levels(n_rows: int) -> int:
+    """Selection depth of the block kernel for an ``n_rows`` corpus:
+    3 from ~4.2M rows (where three of the top k rarely share a block),
+    else 4 (topk_pallas.py:191)."""
+    return 3 if n_rows >= _LEVELS3_MIN_ROWS else LEVELS
+
+
+def _tree_tile_rows(dtype) -> int:
+    """Tree-kernel tile rows: the reference's 16384 for bf16 corpora and
+    8192 for f32. The routing (``use_tree_kernel``) and the certification
+    rate depend on it, so it stays the reference's value."""
+    return 16384 if dtype == torch.bfloat16 else 8192
+
+
+def use_tree_kernel(n_rows: int, k: int, dtype) -> bool:
+    """Routing policy of topk_pallas.py:698-715: the tree kernel when a
+    query's failure chance C(k, 3) / classes^2 is at most ~1e-3, over
+    classes = n_rows / (tile / 128) residue classes."""
+    classes = n_rows // max(_tree_tile_rows(dtype) // TREE_CLASSES, 1)
+    if classes < 1024:
+        return False
+    return math.comb(k, 3) <= 1e-3 * classes * classes
+
+
+def tree_rank_order(groups: int) -> list[int]:
+    """Groups of one residue class in the order the reference's halving
+    tree prefers them on ties: ``order[rank] = g``. The tree first pairs
+    group g with g + groups/2 (left wins ties), then merges those pairs
+    as a balanced tree over bit-reversed positions, so
+    rank(g) = 2 * bitrev(g mod groups/2) + (g >= groups/2)."""
+    if groups < 2 or groups & (groups - 1):
+        raise ValueError(f"groups={groups} must be a power of two >= 2")
+    half = groups // 2
+    bits = half.bit_length() - 1
+    order = [0] * groups
+    for g in range(groups):
+        low = g % half
+        rev = int(f"{low:0{bits}b}"[::-1], 2) if bits else 0
+        order[2 * rev + (g >= half)] = g
+    return order
+
+
+# -- scores and exact selection (plain torch; shared with index/search) --
+
+_SCORE_BLOCK = 1 << 16  # corpus rows widened to f32 per product
+
+
+def prepare_queries(queries: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Queries as contiguous f32 on the corpus device; rounded to bf16
+    first for a bf16 corpus, as every scoring path of the reference does
+    (search.py:146)."""
+    q = queries.to(device=emb.device, dtype=torch.float32)
+    if emb.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).to(torch.float32)
+    return q.contiguous()
+
+
+def dense_scores(emb: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """(Q, N) f32 scores. bf16 rows are widened to f32 block by block
+    before the product: a bf16 x bf16 matmul would return bf16 scores,
+    whose rounding invents ties."""
+    q = prepare_queries(queries, emb)
+    n = emb.shape[0]
+    if emb.dtype == torch.float32:
+        return q @ emb.T
+    out = torch.empty((q.shape[0], n), dtype=torch.float32, device=emb.device)
+    for start in range(0, n, _SCORE_BLOCK):
+        blk = emb[start : start + _SCORE_BLOCK].to(torch.float32)
+        out[:, start : start + blk.shape[0]] = q @ blk.T
+    return out
+
+
+def stable_topk(scores: torch.Tensor, k: int):
+    """Exact top-k along the last axis under (score desc, position asc):
+    a stable descending sort. ``torch.topk`` promises nothing on ties."""
+    vals, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], pos[..., :k]
+
+
+def sort_by_score_then_index(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int):
+    """Order (Q, C) candidates by (score desc, index asc), keep k: a stable
+    sort by index, then a stable sort by score (search.py:91-99)."""
+    o = torch.argsort(cand_i, dim=1, stable=True)
+    s = cand_s.gather(1, o)
+    i = cand_i.gather(1, o)
+    o = torch.argsort(s, dim=1, descending=True, stable=True)[:, :k]
+    return s.gather(1, o), i.gather(1, o)
+
+
+def _padded_scores(emb: torch.Tensor, queries: torch.Tensor, rows: int):
+    s = dense_scores(emb, queries)
+    if rows > s.shape[1]:
+        s = torch.nn.functional.pad(s, (0, rows - s.shape[1]), value=NEG_INF)
+    return s
+
+
+# -- the two candidate functions: plain versions --
+
+
+def block_candidates_plain(emb: torch.Tensor, queries: torch.Tensor, levels: int):
+    """Per 256-row block: the top-``levels`` scores under (score desc,
+    row asc) and the rows of the first ``levels - 1``; rows past the
+    corpus score NEG_INF, and a level that scores NEG_INF names the
+    block's first row. Returns (scores (levels, L, Q) f32,
+    rows (levels - 1, L, Q) i32), L = cdiv(N, 2048) * 8 — level by level
+    the reference's (L, 128-lane) outputs cut to the Q real queries."""
+    n = emb.shape[0]
+    blocks = -(-n // TILE_ROWS) * _SUBS_PER_TILE
+    s = _padded_scores(emb, queries, blocks * SUB_ROWS)
+    q = s.shape[0]
+    vals, pos = stable_topk(s.view(q, blocks, SUB_ROWS), levels)
+    base = torch.arange(blocks, device=s.device, dtype=torch.int64)[:, None] * SUB_ROWS
+    # a level past the block's real rows scores NEG_INF and, as in the
+    # reference (whose knock-out writes NEG_INF back), names the block's
+    # first row
+    rows = torch.where(
+        vals[..., : levels - 1] == NEG_INF, base, pos[..., : levels - 1] + base
+    )
+    return (
+        vals.permute(2, 1, 0).contiguous(),
+        rows.permute(2, 1, 0).to(torch.int32).contiguous(),
+    )
+
+
+def tree_candidates_plain(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
+    """Per (tile, residue class): the top-2 scores with their rows and the
+    third-best score, ties resolved as the reference's halving tree does
+    (``tree_rank_order``). Returns the reference's pre-packed layout:
+    (cand_s (Q, tiles*256) f32, cand_i (Q, tiles*256) i32,
+    bound (Q, tiles*128) f32)."""
+    n = emb.shape[0]
+    tiles = -(-n // tile_rows)
+    groups = tile_rows // TREE_CLASSES
+    s = _padded_scores(emb, queries, tiles * tile_rows)
+    q = s.shape[0]
+    order = torch.tensor(tree_rank_order(groups), device=s.device)
+    ranked = s.view(q, tiles, groups, TREE_CLASSES)[:, :, order, :]
+    vals, pos = stable_topk(ranked.transpose(2, 3), 3)  # (Q, tiles, 128, 3)
+    g = order[pos[..., :2]]
+    rows = (
+        torch.arange(tiles, device=s.device)[:, None, None] * tile_rows
+        + g * TREE_CLASSES
+        + torch.arange(TREE_CLASSES, device=s.device)[:, None]
+    )
+    cand_s = vals[..., :2].transpose(2, 3).reshape(q, tiles * 2 * TREE_CLASSES)
+    cand_i = rows.transpose(2, 3).reshape(q, tiles * 2 * TREE_CLASSES)
+    bound = vals[..., 2].reshape(q, tiles * TREE_CLASSES)
+    return cand_s.contiguous(), cand_i.to(torch.int32).contiguous(), bound.contiguous()
+
+
+# -- wrappers: CUDA kernel for CUDA tensors, plain version for CPU ones --
+
+
+def _check(emb: torch.Tensor, queries: torch.Tensor) -> None:
+    if emb.dim() != 2 or queries.dim() != 2:
+        raise ValueError("emb must be (N, d) and queries (Q, d)")
+    n, d = emb.shape
+    if emb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"corpus dtype {emb.dtype} is not float32/bfloat16")
+    if d % LANES:
+        raise ValueError(f"d={d} must be a multiple of {LANES}")
+    if queries.shape[1] != d:
+        raise ValueError(f"query width {queries.shape[1]} != corpus width {d}")
+    if not 0 < queries.shape[0] <= LANES:
+        raise ValueError(f"Q={queries.shape[0]} must be in 1..{LANES}")
+    if not emb.is_contiguous():
+        raise ValueError("corpus must be contiguous")
+    if n >= 1 << 31:
+        raise ValueError("corpus rows must fit int32")
+    if emb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {emb.device}")
+
+
+def _launch(name: str, emb: torch.Tensor, args: list) -> None:
+    from ._build import entry
+
+    fn = entry(f"topk_{name}")
+    if emb.data_ptr() % 16:
+        raise ValueError("corpus must be 16-byte aligned")
+    with torch.cuda.device(emb.device):
+        stream = torch.cuda.current_stream(emb.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc:
+        raise RuntimeError(f"topk_{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def block_candidates(emb: torch.Tensor, queries: torch.Tensor, levels: int = LEVELS):
+    """The block kernel's candidates (see ``block_candidates_plain``)."""
+    _check(emb, queries)
+    if levels not in (3, 4):
+        raise ValueError(f"levels={levels} must be 3 or 4")
+    if emb.device.type == "cpu":
+        return block_candidates_plain(emb, queries, levels)
+    q = prepare_queries(queries, emb)
+    n, d = emb.shape
+    nq = q.shape[0]
+    blocks = -(-n // TILE_ROWS) * _SUBS_PER_TILE
+    out_s = torch.empty((levels, blocks, nq), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((levels - 1, blocks, nq), dtype=torch.int32, device=emb.device)
+    _launch("block", emb, [
+        emb.data_ptr(), int(emb.dtype == torch.bfloat16), q.data_ptr(),
+        nq, n, d, levels, blocks, out_s.data_ptr(), out_i.data_ptr(),
+    ])
+    return out_s, out_i
+
+
+def tree_candidates(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
+    """The tree kernel's candidates (see ``tree_candidates_plain``)."""
+    _check(emb, queries)
+    if tile_rows < 512 or tile_rows & (tile_rows - 1):
+        raise ValueError(f"tile_rows={tile_rows} must be a power of two >= 512")
+    if emb.device.type == "cpu":
+        return tree_candidates_plain(emb, queries, tile_rows)
+    q = prepare_queries(queries, emb)
+    n, d = emb.shape
+    nq = q.shape[0]
+    tiles = -(-n // tile_rows)
+    if tiles * 4 > 65535:
+        raise ValueError(f"corpus of {n} rows exceeds the tree kernel's grid")
+    cols = tiles * TREE_CLASSES
+    cand_s = torch.empty((nq, 2 * cols), dtype=torch.float32, device=emb.device)
+    cand_i = torch.empty((nq, 2 * cols), dtype=torch.int32, device=emb.device)
+    bound = torch.empty((nq, cols), dtype=torch.float32, device=emb.device)
+    _launch("tree", emb, [
+        emb.data_ptr(), int(emb.dtype == torch.bfloat16), q.data_ptr(),
+        nq, n, d, tile_rows, cand_s.data_ptr(), cand_i.data_ptr(),
+        bound.data_ptr(),
+    ])
+    return cand_s, cand_i, bound
+
+
+# -- merges and certificates (plain torch on the candidates) --
+
+
+def _pad_k(top_s, top_i, k: int):
+    if top_s.shape[1] < k:
+        pad = k - top_s.shape[1]
+        top_s = torch.nn.functional.pad(top_s, (0, pad), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
+    return top_s, top_i
+
+
+def fused_topk_batch(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                     levels: int | None = None):
+    """Certified exact top-k through the block kernel (topk_pallas.py:317).
+
+    Returns (ok (Q,) bool, scores (Q, k) f32, rows (Q, k) int64); rows with
+    ok are the exact top-k under (score desc, row asc), the others need the
+    caller's exact fallback."""
+    n = emb.shape[0]
+    if k > LANES:
+        raise ValueError(f"k={k} > {LANES} not supported by the kernel")
+    if levels is None:
+        levels = default_levels(n)
+    nc = levels - 1
+    ss, ii = block_candidates(emb, queries, levels)
+    q, blocks = ss.shape[2], ss.shape[1]
+    # (Q, L * nc) laid out block by block, levels within a block: position
+    # order is row order among equal scores, so a stable sort keeps the
+    # lowest row first
+    cand_s = ss[:nc].permute(2, 1, 0).reshape(q, blocks * nc)
+    cand_i = ii.permute(2, 1, 0).reshape(q, blocks * nc)
+    kk = min(k, blocks * nc)
+    top_s, pos = stable_topk(cand_s, kk)
+    top_i = cand_i.gather(1, pos).to(torch.int64)
+    top_s, top_i = _pad_k(top_s, top_i, k)
+    # nothing missed can reach the top k: each block's levels-th best is
+    # strictly below the k-th pick
+    m = top_s[:, min(k, n) - 1]
+    ok = (ss[levels - 1].T < m[:, None]).all(dim=1)
+    return ok, top_s[:, :k], top_i[:, :k]
+
+
+def fused_topk_batch_tree(emb: torch.Tensor, queries: torch.Tensor, k: int):
+    """Certified exact top-k through the tree kernel (topk_pallas.py:724).
+    Same contract as ``fused_topk_batch``. An exact top-(k+32) fetch takes
+    the place of the reference's approximate one; both certificates of
+    topk_pallas.py:778-780 are kept as they are."""
+    if k > LANES:
+        raise ValueError(f"k={k} > {LANES} not supported by the kernel")
+    cand_s, cand_i, bound = tree_candidates(emb, queries, _tree_tile_rows(emb.dtype))
+    c_total = cand_s.shape[1]
+    kk = min(k, c_total)
+    fetch = min(kk + _TREE_FETCH_PAD, c_total)
+    cs, cpos = torch.topk(cand_s, fetch, dim=1)
+    ci = cand_i.gather(1, cpos).to(torch.int64)
+    top_s, top_i = sort_by_score_then_index(cs, ci, kk)
+    m = top_s[:, kk - 1]
+    # (1) every candidate >= m was fetched; (2) everything the kernel
+    # dropped scores strictly below m
+    ge_all = (cand_s >= m[:, None]).sum(dim=1)
+    ge_got = (cs >= m[:, None]).sum(dim=1)
+    ok = (ge_all == ge_got) & (bound < m[:, None]).all(dim=1)
+    top_s, top_i = _pad_k(top_s, top_i, k)
+    return ok, top_s[:, :k], top_i[:, :k]

@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain versions, on the GPU.
+
+Imports neither JAX nor the JAX package, so the file also runs on a GPU
+machine without them (``python -m pytest --noconftest -m gpu
+tests/test_torch_gpu.py``). Every test skips in its body where no CUDA
+device is present."""
+
+import numpy as np
+import pytest
+import torch
+
+from evossearch_tpu_torch.index import search
+from evossearch_tpu_torch.ops import topk
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+
+
+def _exact_inputs(seed, n, d, q):
+    """Small integers over 16: exact dots in any order, real ties."""
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy((rng.integers(-4, 5, (n, d)) / 16).astype(np.float32))
+    queries = torch.from_numpy((rng.integers(-4, 5, (q, d)) / 16).astype(np.float32))
+    return emb, queries
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_block_kernel_equals_plain(dtype):
+    _need_gpu()
+    emb, q = _exact_inputs(51, 70_001, 512, 45)
+    e, q = emb.to(DTYPES[dtype]).cuda(), q.cuda()
+    # 45 and 1 queries: a partial 16-query chunk, as the serving path's
+    # query buckets give
+    for nq in (45, 1):
+        for levels in (3, 4):
+            before = topk.LAUNCHES["block"]
+            got = topk.block_candidates(e, q[:nq], levels)
+            assert topk.LAUNCHES["block"] == before + 1
+            want = topk.block_candidates_plain(e, q[:nq], levels)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("tile_rows", [512, None])
+def test_tree_kernel_equals_plain(dtype, tile_rows):
+    _need_gpu()
+    tdt = DTYPES[dtype]
+    tile_rows = tile_rows or topk._tree_tile_rows(tdt)
+    emb, q = _exact_inputs(52, 70_001, 256, 7)
+    e, q = emb.to(tdt).cuda(), q.cuda()
+    before = topk.LAUNCHES["tree"]
+    got = topk.tree_candidates(e, q, tile_rows)
+    assert topk.LAUNCHES["tree"] == before + 1
+    want = topk.tree_candidates_plain(e, q, tile_rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_search_on_gpu_equals_cpu():
+    _need_gpu()
+    emb, q = _exact_inputs(53, 300_000, 128, 9)
+    for dtype in DTYPES.values():
+        e = emb.to(dtype)
+        want = search.exact_search_batch(e, q, 48)
+        got = search.best_exact_search_batch(e.cuda(), q, 48)  # the kernels
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_matmul_f32_bf16_gemm_equals_widened_product():
+    _need_gpu()
+    from evossearch_tpu_torch.models.layers import matmul_f32
+
+    gen = torch.Generator().manual_seed(54)
+    logits = (torch.randn(2, 3, 50, 64, generator=gen),
+              torch.randn(2, 3, 64, 50, generator=gen))
+    dense = (torch.randn(2, 50, 768, generator=gen), torch.randn(768, 96, generator=gen))
+    for a, b in (logits, dense):
+        a, b = a.bfloat16().cuda(), b.bfloat16().cuda()
+        got = matmul_f32(a, b)  # bf16 x bf16 -> f32 on the tensor cores
+        want = torch.matmul(a.float(), b.float())  # f32 SGEMM, no TF32
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        # bf16 products are exact in f32: only the summation order differs
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

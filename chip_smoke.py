@@ -2,13 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the two top-k candidate kernels from evossearch_tpu_torch/ops/csrc
-with nvcc, holds each against its plain PyTorch version and a dense oracle,
-times them, then drives the main path at full ViT-B/32 width (random
-weights, bf16 compute and store): the HTTP app indexes 64 JPEGs and answers
-/search and /search_by_image, and text searches over two seeded stores of
-262,144 and 1,048,576 rows reach the block and the tree kernel through the
-engine's normal routing.
+Builds the four top-k kernels from evossearch_tpu_torch/ops/csrc with
+nvcc, holds each against its plain PyTorch version and a dense oracle,
+times them, then drives three paths at full ViT-B/32 width (random
+weights, bf16 compute and store), each with the launch counts set to 0
+just before it and read just after:
+
+  * the main path: the HTTP app indexes 64 JPEGs and answers /search and
+    /search_by_image, and text searches over two seeded stores of 262,144
+    and 1,048,576 rows reach the block and the tree kernel through the
+    engine's normal routing;
+  * the library entry point ``evossearch_tpu_torch.ops.fused_topk`` (the
+    single-query stream kernel) over the 1,048,576-row store;
+  * the over-budget folder: a 2,097,152-row store (2 GiB of bf16) under a
+    device budget lowered to 1536 MiB through EVOSSEARCH_HBM_BUDGET_MB
+    (a store over the card's own 80% budget would need over 64 GB of
+    disk), so the engine's routing sends its text and embedding searches
+    to the SQ8 tier and the int8 bound-sweep kernel.
 
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. The last line is
@@ -26,6 +36,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -37,17 +48,20 @@ Q = 48           # query batch of the kernel checks (the MAX_RESULTS batch)
 QUERY_BUCKETS = (1, 8, 64, 128)  # query rows the serving path pads a batch to
 N_BLOCK = 1 << 18   # smallest store the kernels serve: the block kernel at k=48
 N_TREE = 1 << 20    # the tree kernel at k=12 and k=48
+N_SQ8 = 1 << 21     # the over-budget folder, and the SQ8 kernel checks
+N_STREAM = 1 << 20  # the stream kernel checks
+SQ8_BUDGET_MB = 1536  # corpus 2 GiB over it, sidecar 1.02 GiB within it
+SQ8_FETCH = 512       # the tier's default fetch (EVOSSEARCH_SQ8_FETCH)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 FMA
 SCORE_ATOL = 1e-5  # dense-oracle score tolerance: summation order only
 REPLACES = {
     "block": "evossearch_tpu/ops/topk_pallas.py:279",
     "tree": "evossearch_tpu/ops/topk_pallas.py:579",
+    "sq8": "evossearch_tpu/ops/topk_pallas.py:664",
+    "stream": "evossearch_tpu/ops/topk_pallas.py:129",
 }
-SOURCES = {
-    "block": "evossearch_tpu_torch/ops/csrc/topk_block.cu",
-    "tree": "evossearch_tpu_torch/ops/csrc/topk_tree.cu",
-}
+SOURCES = {name: f"evossearch_tpu_torch/ops/csrc/topk_{name}.cu" for name in REPLACES}
 
 
 def emit(obj) -> None:
@@ -105,6 +119,14 @@ def same_ranking(s, i, s_ref, i_ref) -> bool:
     return bool(np.array_equal(i[clear], i_ref[clear]))
 
 
+def bound_ms_of(nbytes: int, ops: int, dtype) -> tuple[float, str]:
+    """Least time for ``nbytes`` moved at the HBM rate against ``ops``
+    operations at the peak rate for ``dtype``: the larger, and which."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(name: str, n: int, q: int, dtype, out) -> tuple[float, str]:
     """Least time for one candidate pass: each input byte read once and
     each output byte written once at the HBM rate, against 2*q*n*d
@@ -112,9 +134,7 @@ def bound_ms(name: str, n: int, q: int, dtype, out) -> tuple[float, str]:
     itemsize = torch.tensor([], dtype=dtype).element_size()
     nbytes = n * D * itemsize + q * D * 4
     nbytes += sum(t.numel() * t.element_size() for t in out)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * q * n * D / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms_of(nbytes, 2 * q * n * D, dtype)
 
 
 def library_topk(emb: torch.Tensor, q: torch.Tensor, k: int):
@@ -211,6 +231,140 @@ def kernel_checks(topk, search) -> dict:
     return rows
 
 
+def exact_sq8_inputs(n: int, gen: torch.Generator):
+    """int8 rows, power-of-two scales, queries of small integers over 16:
+    every bound's dot is exact in float32, and equal bounds tie for real."""
+    e8 = torch.randint(-127, 128, (n, D), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = 2.0 ** -torch.randint(5, 10, (n,), generator=gen, device="cuda").float()
+    radd = torch.rand(n, generator=gen, device="cuda") * 1e-2
+    q = torch.randint(-4, 5, (max(QUERY_BUCKETS), D), generator=gen,
+                      device="cuda") / 16.0
+    return e8, torch.stack([scale, radd]).contiguous(), q.float()
+
+
+def sq8_checks(topk) -> dict:
+    """The SQ8 bound sweep against its plain version (bit for bit on
+    exact-dot inputs at Q and every query bucket; within SCORE_ATOL on
+    unit rows quantized on the card), the rigor of every emitted bound,
+    the certification rate, timings and bound."""
+    from evossearch_tpu_torch.index.sq8 import _sq8_select, quantize_rows_device
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, tile = N_SQ8, topk.SQ8_TILE_ROWS
+    e8, scal2, q_all = exact_sq8_inputs(n, gen)
+    qn_all = torch.linalg.norm(q_all, dim=1)
+    bit_equal_q = (Q,) + QUERY_BUCKETS
+    for nq in bit_equal_q:
+        got = topk.sq8_candidates(e8, scal2, q_all[:nq], qn_all[:nq], tile)
+        torch.cuda.synchronize()
+        want = topk.sq8_candidates_plain(e8, scal2, q_all[:nq], qn_all[:nq], tile)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"sq8 candidates at Q={nq} equal the plain version bit for bit")
+        del got, want
+    del e8, scal2, q_all
+    # unit rows of a bf16 store, quantized on the card
+    rows = unit_rows(n, gen).to(torch.bfloat16).float()
+    e8, scal2 = quantize_rows_device(rows)
+    q = unit_rows(Q, gen)
+    qn = torch.linalg.norm(q, dim=1)
+    out = topk.sq8_candidates(e8, scal2, q, qn, tile)
+    ref = topk.sq8_candidates_plain(e8, scal2, q, qn, tile)
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref)
+              if a.dtype == torch.float32)
+    check(err <= SCORE_ATOL, f"sq8 candidate bounds within {SCORE_ATOL} of the "
+          f"plain version on unit rows ({err})")
+    del ref
+    # rigor: every emitted bound dominates its row's exact f32 score,
+    # against the f32 query and the bf16-rounded one
+    cand_s, cand_i = out[0], out[1].long()
+    worst = -math.inf
+    for qq in (q, q.bfloat16().float()):
+        exact = (qq @ rows.T).gather(1, cand_i)
+        worst = max(worst, float((exact - cand_s).max()))
+    check(worst <= 0, f"every sq8 candidate bound >= its row's exact score ({worst})")
+    # certification rate of the tier at k = 48: the device half, then the
+    # rerank's certificate computed here on the card
+    k = 48
+    fb, fid, cnt_ok, m3max = _sq8_select(e8, scal2, q, SQ8_FETCH, tile)
+    qb = q.bfloat16().float()
+    exact = (rows[fid] * qb[:, None, :]).sum(-1)
+    m = torch.topk(exact, k, dim=1).values[:, -1]
+    cert = (m3max < m) & cnt_ok & (m >= fb[:, -1])
+    b_ms, b_by = bound_ms_of(
+        n * D + 8 * n + Q * D * 4 + Q * 4 + sum(t.numel() * 4 for t in out),
+        2 * Q * n * D, torch.bfloat16)
+    e_bf = e8.to(torch.bfloat16)  # the library yardstick's widened corpus
+    row = {
+        "phase": "kernel_check", "kernel": "sq8", "dtype": "int8", "n": n,
+        "d": D, "q": Q, "k": k, "tile_rows": tile,
+        "bit_equal_plain_at_q": list(bit_equal_q), "max_abs_err": err,
+        "bound_minus_exact_max": worst,
+        "cert_rate_unit_rows": float(cert.float().mean()),
+        "ms": time_ms(lambda: topk.sq8_candidates(e8, scal2, q, qn, tile)),
+        "ms_q1": time_ms(lambda: topk.sq8_candidates(e8, scal2, q[:1], qn[:1], tile)),
+        "plain_ms": time_ms(lambda: topk.sq8_candidates_plain(e8, scal2, q, qn, tile)),
+        "merge_ms": time_ms(lambda: _sq8_select(e8, scal2, q, SQ8_FETCH, tile)),
+        "library_ms": time_ms(lambda: library_topk(e_bf, q, k)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    emit(row)
+    del rows, e8, scal2, e_bf, out, exact
+    torch.cuda.empty_cache()
+    return row
+
+
+def stream_checks(topk) -> dict:
+    """The single-query stream kernel against its plain version (bit for
+    bit on exact-dot inputs, whose query of 256 entries +-1/16 has norm
+    exactly 1, and equal to the dense oracle under the tie rule; within
+    SCORE_ATOL on unit rows), timings and bound; bf16 and f32, k = 48 and
+    128."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    n = N_STREAM
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        emb, _ = exact_inputs(n, dtype, gen)
+        q = torch.zeros(D, device="cuda")
+        pick = torch.randperm(D, generator=gen, device="cuda")[:256]
+        q[pick] = (torch.randint(0, 2, (256,), generator=gen, device="cuda") * 2 - 1) / 16.0
+        for k in (48, 128):
+            s, i = topk.fused_topk(emb, q, k)
+            ps, pi = topk.fused_topk_plain(emb, q, k)
+            check(torch.equal(s, ps) and torch.equal(i, pi),
+                  f"stream {dname} k={k} equals the plain version bit for bit")
+            os_, oi = topk.stable_topk(emb.float() @ q, k)  # ||q|| = 1 exactly
+            check(torch.equal(s, os_) and torch.equal(i, oi),
+                  f"stream {dname} k={k} equals the dense oracle (exact dots)")
+        emb = unit_rows(n, gen).to(dtype).contiguous()
+        q = torch.randn(D, generator=gen, device="cuda")
+        for k in (48, 128):
+            s, i = topk.fused_topk(emb, q, k)
+            ps, pi = topk.fused_topk_plain(emb, q, k)
+            err = float((s - ps).abs().max())
+            check(err <= SCORE_ATOL and same_ranking(
+                s.cpu()[None], i.cpu()[None], ps.cpu()[None], pi.cpu()[None]),
+                f"stream {dname} k={k} on unit rows equals the plain version ({err})")
+            itemsize = emb.element_size()
+            b_ms, b_by = bound_ms_of(n * D * itemsize + D * 4 + k * 8,
+                                     2 * n * D, torch.float32)
+            qn = q / torch.linalg.norm(q)
+            row = {
+                "phase": "kernel_check", "kernel": "stream", "dtype": dname,
+                "n": n, "d": D, "q": 1, "k": k, "max_abs_err": err,
+                "ms": time_ms(lambda: topk.fused_topk(emb, q, k)),
+                "plain_ms": time_ms(lambda: topk.fused_topk_plain(emb, q, k)),
+                "library_ms": time_ms(lambda: library_topk(emb, qn[None], k)),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            emit(row)
+            rows[(dname, k)] = row
+        del emb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def write_jpegs(folder: Path, count: int) -> list[Path]:
     """Seeded JPEGs of mixed sizes, one of them a panorama."""
     from PIL import Image
@@ -264,15 +418,155 @@ def tower_times(engine) -> dict:
             "text_tower_ms_batch1": text_ms}
 
 
+def library_path(topk, engine, folder: Path) -> dict:
+    """The stream kernel's path: the public entry point
+    ``evossearch_tpu_torch.ops.fused_topk`` on the 1,048,576-row store as
+    the engine holds it on the card, for one text query's embedding, with
+    the launch counts set to 0 just before and read just after."""
+    from evossearch_tpu_torch.ops import fused_topk
+
+    entry, reader = engine._cached_index(str(folder))
+    emb_d = engine._entry_emb(entry, reader)
+    q = torch.as_tensor(engine.encode_text("a photo of a horse"), device="cuda")
+    for name in topk.LAUNCHES:
+        topk.LAUNCHES[name] = 0
+    out = {k: fused_topk(emb_d, q, k) for k in (12, 48)}
+    torch.cuda.synchronize()
+    launches = dict(topk.LAUNCHES)
+    check(launches["stream"] > 0, "the stream kernel ran on its path")
+    for k, (s, i) in out.items():
+        ps, pi = topk.fused_topk_plain(emb_d, q, k)
+        check(same_ranking(s.cpu()[None], i.cpu()[None], ps.cpu()[None], pi.cpu()[None]),
+              f"ops.fused_topk k={k} over {reader.count} rows equals the dense oracle")
+    emit({"phase": "library_path", "store": folder.name, "n": reader.count,
+          "launches": launches, "equals_dense_oracle": True})
+    return launches
+
+
+def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
+    """The SQ8 tier's path: a 2,097,152-row bf16 store over a device budget
+    lowered to SQ8_BUDGET_MB, searched through the engine's normal
+    routing (text at k = 12 and 48, then 8 concurrent embedding searches,
+    which the host batcher sends as one batch), with the launch counts set
+    to 0 just before and read just after. The first search builds the
+    sidecar inline; a second engine then loads it without rebuilding."""
+    from evossearch_tpu_torch.core import Config
+    from evossearch_tpu_torch.engine import SearchEngine, _canon
+    from evossearch_tpu_torch.index.search import exact_search_host_reader_batch
+    from evossearch_tpu_torch.index.store import IndexReader
+
+    folder = work / f"store_{N_SQ8}"
+    t0 = time.perf_counter()
+    write_store(folder, N_SQ8, gen)
+    store_s = time.perf_counter() - t0
+    os.environ["EVOSSEARCH_HBM_BUDGET_MB"] = str(SQ8_BUDGET_MB)
+    os.environ["EVOSSEARCH_SQ8_SYNC_ROWS"] = str(2 * N_SQ8)
+    try:
+        cfg = Config(env_path=work / "missing.env")
+    finally:
+        del os.environ["EVOSSEARCH_HBM_BUDGET_MB"], os.environ["EVOSSEARCH_SQ8_SYNC_ROWS"]
+    emit({"phase": "over_budget_setup", "n": N_SQ8, "store_dtype": "bfloat16",
+          "store_written_s": store_s, "corpus_bytes": N_SQ8 * D * 2,
+          "sidecar_bytes": N_SQ8 * (D + 8), "budget_mb": cfg.HBM_BUDGET_MB,
+          "reduction": "device budget lowered from 80% of the card to "
+                       f"{SQ8_BUDGET_MB} MiB through EVOSSEARCH_HBM_BUDGET_MB, "
+                       "so a 2 GiB store is over it: a store over the card's "
+                       "own budget would need over 64 GB of disk",
+          "sq8": cfg.SQ8, "sq8_sync_rows": cfg.SQ8_SYNC_ROWS})
+    eng = SearchEngine(cfg=cfg, params=engine.params, device="cuda")
+    text = "a photo of a bird"
+    rng = np.random.default_rng(6)
+    embs = rng.standard_normal((8, D)).astype(np.float32)
+    embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+    sidecar = folder / ".clip_index" / "sq8.json"
+
+    for name in topk.LAUNCHES:
+        topk.LAUNCHES[name] = 0
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    first = eng.search_text(str(folder), text, 12)
+    first_s = time.perf_counter() - t0
+    build_s = sidecar.stat().st_mtime - t_wall
+    results = {("text", 12): first}
+    t0 = time.perf_counter()
+    results[("text", 48)] = eng.search_text(str(folder), text, 48)
+    text48_ms = (time.perf_counter() - t0) * 1e3
+    seq_ms = []
+    for j in range(4):
+        t0 = time.perf_counter()
+        results[("emb", j)] = eng.search_embedding(str(folder), embs[j], 48)
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+    out = [None] * len(embs)
+
+    def run(j):
+        out[j] = eng.search_embedding(str(folder), embs[j], 48)
+
+    threads = [threading.Thread(target=run, args=(j,)) for j in range(len(embs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    concurrent_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(topk.LAUNCHES)
+    snap = eng.counters.snapshot()
+    check(launches["sq8"] > 0, "the sq8 kernel ran on the over-budget path")
+    check(snap.get("sq8_queries", 0) > 0, "the SQ8 tier served the over-budget folder")
+
+    entry = eng._index_cache[_canon(str(folder))]
+    check("emb" not in entry and entry.get("sq8") is not None,
+          "the folder's corpus stayed off the card and the sidecar is installed")
+    check(entry["device_bytes"] == entry["sq8"].device_bytes() == N_SQ8 * (D + 8),
+          "the folder holds N*(d+8) device bytes")
+    # correctness against the exact host scan
+    reader = IndexReader.open(folder)
+    q_text = eng.encode_text(text)
+    queries = np.concatenate([q_text[None], embs])
+    t0 = time.perf_counter()
+    o_s, o_i = exact_search_host_reader_batch(reader, queries, 48)
+    oracle_s = time.perf_counter() - t0
+    for (kind, key), (scores, idx, _) in list(results.items()) + [
+            (("emb", j), r) for j, r in enumerate(out)]:
+        row = 0 if kind == "text" else 1 + key
+        kk = len(idx)
+        check(same_ranking(scores[None], idx[None], o_s[row:row + 1, :kk], o_i[row:row + 1, :kk]),
+              f"over-budget {kind} {key} equals the exact host scan")
+    # a second engine loads the persisted sidecar without rebuilding
+    mtime = sidecar.stat().st_mtime
+    eng2 = SearchEngine(cfg=cfg, params=engine.params, device="cuda")
+    t0 = time.perf_counter()
+    again = eng2.search_embedding(str(folder), embs[0], 48)
+    reload_s = time.perf_counter() - t0
+    check(sidecar.stat().st_mtime == mtime, "the second engine did not rebuild the sidecar")
+    check(eng2.counters.snapshot().get("sq8_queries", 0) == 1
+          and np.array_equal(again[1], results[("emb", 0)][1]),
+          "the second engine served the folder from the persisted sidecar")
+    row = {"phase": "over_budget_path", "n": N_SQ8, "launches": launches,
+           "first_search_s": first_s, "sidecar_build_s": build_s,
+           "text_k48_ms": text48_ms, "search_ms_sequential_k48": seq_ms,
+           "concurrent_8_ms": concurrent_ms, "reload_first_search_s": reload_s,
+           "sq8_queries": snap.get("sq8_queries", 0),
+           "sq8_fallback_queries": snap.get("sq8_fallback_queries", 0),
+           "host_routed_queries": snap.get("host_routed_queries", 0),
+           "host_oracle_s": oracle_s, "equals_host_scan": True}
+    emit(row)
+    eng2.close()
+    eng.close()
+    return launches
+
+
 def main_path(topk, search) -> dict:
-    """Phases 4 and 5 in a temporary directory that is removed after."""
+    """The three paths in a temporary directory that is removed after."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         return run_main_path(topk, search, Path(tmp))
 
 
 def run_main_path(topk, search, work: Path) -> dict:
     """Phases 4 and 5, one run of the main path with the launch counts
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after; then the stream kernel's
+    and the SQ8 tier's paths, each counted the same way. Returns each
+    kernel's launches on its own path."""
     from evossearch_tpu_torch.core import Config
     from evossearch_tpu_torch.engine import SearchEngine
     from evossearch_tpu_torch.index.store import IndexReader, as_float32
@@ -356,6 +650,8 @@ def run_main_path(topk, search, work: Path) -> dict:
     emit({"phase": "main_path_launches", "launches": launches})
     check(launches["block"] > 0, "the block kernel ran on the main path")
     check(launches["tree"] > 0, "the tree kernel ran on the main path")
+    launches.update(stream=library_path(topk, engine, large)["stream"],
+                    sq8=over_budget_path(topk, engine, work, gen)["sq8"])
 
     # -- correctness of what came out (after the counted run) --
     for (name, k), ((scores, idx, reader), text, ms) in results.items():
@@ -422,11 +718,15 @@ def main() -> int:
           "registers_per_thread": regs})
 
     rows = kernel_checks(topk, search)
+    rows[("sq8", "int8", 48)] = sq8_checks(topk)
+    for (dname, k), row in stream_checks(topk).items():
+        rows[("stream", dname, k)] = row
     launches = main_path(topk, search)
 
     kernels = []
-    for name in ("tree", "block"):
-        row = rows[(name, "bf16", 48)]
+    for name, dname in (("tree", "bf16"), ("block", "bf16"), ("sq8", "int8"),
+                        ("stream", "bf16")):
+        row = rows[(name, dname, 48)]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

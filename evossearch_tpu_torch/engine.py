@@ -1,8 +1,8 @@
 """SearchEngine — the engine layer tying tokenizer, CLIP towers, the fused
 preprocess and the shard store into the operations the HTTP layer needs.
-PyTorch counterpart of ``evossearch_tpu/engine.py`` (its main-path
-subset: exact search on one device, the host scan for over-budget
-corpora).
+PyTorch counterpart of ``evossearch_tpu/engine.py`` (exact search on one
+device; for over-budget corpora the SQ8 capacity tier on the device, else
+the host scan).
 
   * the engine runs on one device, ``"cuda"`` unless the caller passes
     ``device="cpu"``; with no GPU and no explicit device it raises;
@@ -14,8 +14,8 @@ corpora).
     differ from the JAX package's ``jax.random.key(0)`` init).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): IVF, the sharded kernel and data-parallel encode, the SQ8 tier,
-OpenAI/HF checkpoint conversion.
+item): IVF, the sharded kernel and data-parallel encode (with them the
+mesh-sharded SQ8 tier), OpenAI/HF checkpoint conversion.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from .utils import Counters, StageTimer, get_logger
 
 log = get_logger("engine")
 
-_UNSET = object()  # _batcher's lock-free "not initialized" sentinel
+_UNSET = object()  # lock-free "not initialized" sentinel (batchers, SQ8)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -558,7 +558,9 @@ class SearchEngine:
                 entries[key] = {
                     "device_bytes": e.get("device_bytes", 0),
                     "fits_device": e.get("fits_device"),
-                    "tiers": ["emb"] if e.get("emb") is not None else [],
+                    "tiers": [
+                        f for f in ("emb", "sq8") if e.get(f) is not None
+                    ],
                 }
         return {
             "budget_bytes": budget,
@@ -581,8 +583,10 @@ class SearchEngine:
             if not fits:
                 log.warning(
                     "corpus of %d rows (%.2f GB %s) exceeds the device "
-                    "budget (%.2f GB) — routing queries to the host scan; "
-                    "raise EVOSSEARCH_HBM_BUDGET_MB to search it on device",
+                    "budget (%.2f GB) — routing queries to the SQ8 device "
+                    "tier (certified int8 sidecar) or the host mmap "
+                    "scanner; raise EVOSSEARCH_HBM_BUDGET_MB to search this "
+                    "folder at full dtype on device",
                     reader.count, need / 2**30, reader.dtype_name,
                     budget / 2**30,
                 )
@@ -610,7 +614,8 @@ class SearchEngine:
                 if not other["lock"].acquire(blocking=False):
                     continue
                 try:
-                    other.pop("emb", None)
+                    for field in ("emb", "sq8"):
+                        other.pop(field, None)
                     total -= other["device_bytes"]
                     other["device_bytes"] = 0
                     self.counters.add("hbm_evictions")
@@ -660,15 +665,161 @@ class SearchEngine:
             row += shard.shape[0]
         return emb
 
+    def _entry_sq8(self, entry, reader):
+        """SQ8 capacity tier for an over-budget folder, or None.
+
+        Keeps a certified int8 sidecar (index/sq8.py) on the device —
+        half the bf16 corpus bytes — and serves EXACT results through the
+        bound-sweep kernel + host rerank, in place of the host scan. The
+        sidecar builds host-side (chunked numpy over the mmap shards — an
+        over-budget corpus cannot ride through the device) and persists
+        next to the store; it is fresh when not older than the manifest
+        and stamped with its mtime. Device residency rides the normal
+        reservation/eviction accounting."""
+        sq8 = entry.get("sq8", _UNSET)
+        if sq8 is not _UNSET:
+            return sq8
+        with entry["lock"]:
+            sq8 = entry.get("sq8", _UNSET)
+            if sq8 is not _UNSET:
+                return sq8
+            from .index.sq8 import SQ8Index
+
+            need = reader.count * (reader.dim + 8)
+            budget = self._hbm_budget
+            if not (
+                self.cfg.SQ8 != "off"
+                and reader.count
+                and reader.dim % 128 == 0
+                and (budget is None or need <= budget)
+            ):
+                entry["sq8"] = None
+                return None
+            mt = SQ8Index.sidecar_mtime(reader)
+            if mt is not None and mt >= entry["mtime"]:
+                sq8 = SQ8Index.load(reader, fetch=self.cfg.SQ8_FETCH,
+                                    store_mtime=entry["mtime"])
+                if sq8 is not None:
+                    self._install_sq8(entry, sq8, need)
+                    return entry["sq8"]
+            if reader.count <= self.cfg.SQ8_SYNC_ROWS:
+                log.info(
+                    "building the SQ8 sidecar for %d rows (one-time, "
+                    "host-side; persisted next to the store)",
+                    reader.count,
+                )
+                try:
+                    sq8 = SQ8Index.build_from_reader(
+                        reader, fetch=self.cfg.SQ8_FETCH,
+                        store_mtime=entry["mtime"],
+                    )
+                except OSError as e:  # read-only index dir, disk full
+                    log.warning("SQ8 sidecar build failed (%s) — "
+                                "serving the host scan instead", e)
+                    sq8 = None
+                if sq8 is not None:
+                    self._install_sq8(entry, sq8, need)
+                entry.setdefault("sq8", sq8)
+                return entry["sq8"]
+            # Big corpus, no sidecar yet: a synchronous build would stall
+            # this query (and the folder) for minutes — build in the
+            # background and serve the host scan until it publishes.
+            if not entry.get("sq8_building"):
+                entry["sq8_building"] = True
+                self.counters.add("sq8_async_builds")
+                log.info(
+                    "building the SQ8 sidecar for %d rows in the "
+                    "background (queries ride the host scan until it is "
+                    "ready; EVOSSEARCH_SQ8_SYNC_ROWS forces inline)",
+                    reader.count,
+                )
+                threading.Thread(
+                    target=self._build_sq8_background,
+                    args=(entry, reader, need), daemon=True,
+                    name="sq8-build",
+                ).start()
+            return None
+
+    def _install_sq8(self, entry, sq8, need: int) -> None:
+        """Reserve device bytes and materialize a built/loaded sidecar; on
+        a device failure the folder keeps serving via the host scan.
+        Caller holds entry['lock']."""
+        sq8.counters = self.counters  # uncertified fallbacks -> /stats
+        self._reserve_device_bytes(entry, need)
+        try:
+            sq8.ensure_device(self.device)
+        except Exception as e:
+            self._release_device_bytes(entry, need)
+            log.warning("SQ8 device materialization failed (%s) — "
+                        "serving the host scan instead", e)
+            entry["sq8"] = None
+            return
+        entry["sq8"] = sq8
+
+    def _build_sq8_background(self, entry, reader, need: int) -> None:
+        """Daemon-thread sidecar build for corpora over SQ8_SYNC_ROWS.
+
+        Publishes the files, then installs under the entry lock. If the
+        folder was re-indexed meanwhile this entry is orphaned (the cache
+        keys entries by manifest mtime) and the published sidecar carries
+        the OLD store_mtime stamp, so the fresh entry's load() rejects it
+        and rebuilds — never stale bounds."""
+        from .index.sq8 import SQ8Index
+
+        try:
+            sq8 = SQ8Index.build_from_reader(
+                reader, fetch=self.cfg.SQ8_FETCH, store_mtime=entry["mtime"]
+            )
+        except Exception as e:
+            log.warning("background SQ8 sidecar build failed (%s) — "
+                        "the host scan keeps serving this folder", e)
+            with entry["lock"]:
+                entry["sq8"] = None
+                entry["sq8_building"] = False
+            return
+        with entry["lock"]:
+            try:
+                with self._cache_lock:
+                    live = any(
+                        e is entry for e in self._index_cache.values()
+                    )
+                if not live:
+                    # re-indexed or evicted mid-build: installing device
+                    # arrays nobody can reach would only squat memory
+                    log.info(
+                        "folder changed during the background SQ8 build "
+                        "— discarding the stale install (the fresh entry "
+                        "rebuilds against the new store)",
+                    )
+                    entry["sq8"] = None
+                    return
+                if entry.get("sq8") is not None:
+                    # build_from_reader publishes the files BEFORE this
+                    # lock is taken: a query thread may already have
+                    # loaded and installed them — a second install would
+                    # double-reserve device bytes with no release path
+                    return
+                self._install_sq8(entry, sq8, need)
+                if entry.get("sq8") is not None:
+                    log.info(
+                        "SQ8 sidecar ready: %d rows now served by the "
+                        "certified device tier", reader.count,
+                    )
+            finally:
+                entry["sq8_building"] = False
+
     def _execute_search_batch(self, folder: str, queries, k: int):
         """One batched search over a folder's cached corpus (device
-        kernels, or the host scan for an over-budget corpus)."""
+        kernels; for an over-budget corpus the SQ8 tier or the host
+        scan)."""
         entry, reader = self._cached_index(folder)
         if reader is None:
             raise LookupError("Folder not indexed")
         k = min(k, reader.count)
         if not self._fits_device(entry, reader):
-            return self._host_search_batch(queries, reader, k)
+            # over-budget corpus: the SQ8 tier, else the exact host scan;
+            # before the bucket padding (host work is real per row)
+            return self._host_search_batch(queries, reader, k, entry)
         from .index.search import query_row_bucket
 
         # pad the batch to the bucket ladder; extra rows repeat row 0 and
@@ -686,20 +837,19 @@ class SearchEngine:
         s, i = self._execute_search_batch_padded(entry, reader, queries, k)
         return s[:q], i[:q]
 
-    def _host_search_batch(self, queries, reader, k: int):
-        """Over-budget corpus: exact scan in place over the mmap shards
-        (the SQ8 device tier of the JAX package is not ported)."""
-        if self.cfg.SQ8 != "off":
-            raise _not_ported(
-                "the SQ8 capacity tier (set EVOSSEARCH_SQ8=off for the "
-                "exact host scan)", "A11",
-            )
+    def _host_search_batch(self, queries, reader, k: int, entry=None):
+        """Exact scan in place over the mmap shards (SEARCH_KERNEL=host);
+        for the over-budget ``entry`` of a folder, the SQ8 tier first."""
         from .index.search import exact_search_host_reader_batch
 
         if isinstance(queries, torch.Tensor):
             queries = queries.cpu().numpy()
         queries = np.asarray(queries, np.float32).reshape(-1, reader.dim)
         self.counters.add("host_routed_queries", queries.shape[0])
+        sq8 = None if entry is None else self._entry_sq8(entry, reader)
+        if sq8 is not None:
+            self.counters.add("sq8_queries", queries.shape[0])
+            return sq8.search_batch(queries, k)
         return exact_search_host_reader_batch(reader, queries, k)
 
     def _fused_text_eligible(self, entry, reader) -> bool:

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-KERNELS = ("topk_block", "topk_tree")
+KERNELS = ("topk_block", "topk_tree", "topk_sq8", "topk_stream")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "topk_block": ("evs_topk_block", [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
     "topk_tree": ("evs_topk_tree", [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "topk_sq8": ("evs_topk_sq8", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "topk_stream": ("evs_topk_stream", [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-// Shared device code of the two candidate kernels (topk_block.cu and
-// topk_tree.cu): a per-thread dot product of one corpus row against a
+// Shared device code of the candidate kernels (topk_block.cu, topk_tree.cu
+// and topk_sq8.cu): a per-thread dot product of one corpus row against a
 // register tile of QM queries, a running top-LEV insertion, and a warp
 // merge of those running states.
 //
@@ -25,8 +25,13 @@ constexpr int THREADS = 128;            // threads per block
 constexpr float NEG_FILL = -FLT_MAX;    // score of padded / tail rows
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+// Row elements one load_row_vec call widens: 32 bytes of f32, 16 bytes of
+// bf16 or int8.
+template <typename T> struct RowVec { static constexpr int W = 8; };
+template <> struct RowVec<int8_t> { static constexpr int W = 16; };
+
 // Eight consecutive row elements, widened exactly to f32.
-__device__ __forceinline__ void load8(const float* p, float (&r)[8]) {
+__device__ __forceinline__ void load_row_vec(const float* p, float (&r)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
@@ -35,7 +40,7 @@ __device__ __forceinline__ void load8(const float* p, float (&r)[8]) {
 
 // bf16 -> f32 is a 16-bit shift of the bit pattern; element 0 is the low
 // half of each 32-bit word (little endian).
-__device__ __forceinline__ void load8(const uint16_t* p, float (&r)[8]) {
+__device__ __forceinline__ void load_row_vec(const uint16_t* p, float (&r)[8]) {
   const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
   r[0] = __uint_as_float(v.x << 16); r[1] = __uint_as_float(v.x & 0xffff0000u);
   r[2] = __uint_as_float(v.y << 16); r[3] = __uint_as_float(v.y & 0xffff0000u);
@@ -43,19 +48,38 @@ __device__ __forceinline__ void load8(const uint16_t* p, float (&r)[8]) {
   r[6] = __uint_as_float(v.w << 16); r[7] = __uint_as_float(v.w & 0xffff0000u);
 }
 
+// Sixteen int8 elements in one 16-byte load; byte b of each 32-bit word is
+// element b (little endian), sign-extended by the arithmetic shift and
+// converted exactly (|x| <= 128).
+__device__ __forceinline__ void load_row_vec(const int8_t* p, float (&r)[16]) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int x =
+          static_cast<int>(static_cast<unsigned>(w[i]) << (24 - 8 * b)) >> 24;
+      r[4 * i + b] = __int2float_rn(x);
+    }
+  }
+}
+
 // acc[q] = <row, query q> for the block's QM queries, held in shared
 // memory as qs[k * QM + q] (f32). IEEE f32 FMA on the CUDA cores: no TF32.
+// d must be a multiple of RowVec<T>::W.
 template <typename T>
 __device__ __forceinline__ void dot_row(const T* __restrict__ row,
                                         const float* __restrict__ qs, int d,
                                         float (&acc)[QM]) {
+  constexpr int W = RowVec<T>::W;
 #pragma unroll
   for (int q = 0; q < QM; ++q) acc[q] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += 8) {
-    float r[8];
-    load8(row + k0, r);
+  for (int k0 = 0; k0 < d; k0 += W) {
+    float r[W];
+    load_row_vec(row + k0, r);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < W; ++kk) {
       const float4* qv = reinterpret_cast<const float4*>(qs + (k0 + kk) * QM);
 #pragma unroll
       for (int j = 0; j < QM / 4; ++j) {

@@ -1,13 +1,14 @@
-"""Certified exact batched top-k: the two candidate kernels, their plain
-versions, and the merge + certificate glue around them.
+"""Certified exact top-k: the candidate kernels, the single-query
+streaming kernel, their plain versions, and the merge + certificate glue
+around them.
 
-Counterpart of ``evossearch_tpu/ops/topk_pallas.py``. Each kernel makes
-ONE pass over an (N, d) corpus for up to 128 queries and keeps a few
-candidates per fixed partition of the rows, plus a bound on everything it
-dropped; a plain-torch merge then selects the top k from the candidates
-and certifies per query that nothing dropped could have entered it.
-Uncertified queries (adversarial mass ties) are the caller's to re-run on
-the dense exact path.
+Counterpart of ``evossearch_tpu/ops/topk_pallas.py``. Each candidate
+kernel makes ONE pass over an (N, d) corpus for up to 128 queries and
+keeps a few candidates per fixed partition of the rows, plus a bound on
+everything it dropped; a plain-torch merge then selects the top k from the
+candidates and certifies per query that nothing dropped could have entered
+it. Uncertified queries (adversarial mass ties) are the caller's to re-run
+on the dense exact path.
 
 ``block`` (B2, ``csrc/topk_block.cu``): per 256-row block, the top
   ``levels - 1`` rows under (score desc, row asc) and the ``levels``-th
@@ -15,17 +16,25 @@ the dense exact path.
 ``tree`` (B1, ``csrc/topk_tree.cu``): per (tile, residue class
   ``row % 128``), the reference halving tree's top-2 rows and its
   third-best score as the bound.
+``sq8`` (B3, ``csrc/topk_sq8.cu``): the tree's selection over certified
+  upper bounds ``<e8, bf16(q)> * scale + ||q|| * radd`` of an int8 corpus
+  (the SQ8 capacity tier, ``index/sq8.py``).
+``stream`` (B4, ``csrc/topk_stream.cu``): the exact top-k of ONE query,
+  normalized in the kernel (``fused_topk``; a library entry point, no
+  engine route uses it).
 
-Each wrapper (``block_candidates``, ``tree_candidates``) launches its CUDA
-kernel for a tensor on a CUDA device and runs the plain torch version
-(``*_plain``) only for a tensor on the CPU; anything else raises. The
-plain versions compute the same function and are what the CPU tests hold
-against the reference's Pallas kernels in interpret mode.
+Each wrapper (``block_candidates``, ``tree_candidates``,
+``sq8_candidates``, ``fused_topk``) launches its CUDA kernel for a tensor
+on a CUDA device and runs the plain torch version (``*_plain``) only for a
+tensor on the CPU; anything else raises. The plain versions compute the
+same function and are what the CPU tests hold against the reference's
+Pallas kernels in interpret mode.
 
 Numerics: a bf16 corpus is scored against queries rounded to bf16 first,
 bf16 widened exactly to f32 and accumulated in f32; an f32 corpus in IEEE
-f32. Scores are f32 throughout. Tie contract: (score desc, row asc).
-Shapes: k <= 128, Q <= 128 per call, d % 128 == 0.
+f32; the SQ8 sweep always rounds its queries to bf16; ``fused_topk`` never
+does. Scores are f32 throughout. Tie contract: (score desc, row asc).
+Shapes: k <= 128, Q <= 128 per call, d % 128 == 0 (``fused_topk``: d % 8).
 """
 
 from __future__ import annotations
@@ -54,7 +63,13 @@ _TREE_FETCH_PAD = 32
 
 # Kernel launches per wrapper, counted where the CUDA kernel is launched
 # and nowhere else (plain CPU runs do not count).
-LAUNCHES = {"block": 0, "tree": 0}
+LAUNCHES = {"block": 0, "tree": 0, "sq8": 0, "stream": 0}
+
+# SQ8 tile: one 256-candidate block per 32768 rows, half the tree kernel's
+# bf16 candidate density (topk_pallas.py:653-661). The certificate's
+# failure rate and the merge's work depend on it, so it stays the
+# reference's value.
+SQ8_TILE_ROWS = 32768
 
 
 def default_levels(n_rows: int) -> int:
@@ -115,9 +130,9 @@ def prepare_queries(queries: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 
 
 def dense_scores(emb: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """(Q, N) f32 scores. bf16 rows are widened to f32 block by block
-    before the product: a bf16 x bf16 matmul would return bf16 scores,
-    whose rounding invents ties."""
+    """(Q, N) f32 scores. bf16 (and int8) rows are widened to f32 block
+    by block before the product: a bf16 x bf16 matmul would return bf16
+    scores, whose rounding invents ties."""
     q = prepare_queries(queries, emb)
     n = emb.shape[0]
     if emb.dtype == torch.float32:
@@ -181,17 +196,15 @@ def block_candidates_plain(emb: torch.Tensor, queries: torch.Tensor, levels: int
     )
 
 
-def tree_candidates_plain(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
-    """Per (tile, residue class): the top-2 scores with their rows and the
-    third-best score, ties resolved as the reference's halving tree does
-    (``tree_rank_order``). Returns the reference's pre-packed layout:
-    (cand_s (Q, tiles*256) f32, cand_i (Q, tiles*256) i32,
-    bound (Q, tiles*128) f32)."""
-    n = emb.shape[0]
-    tiles = -(-n // tile_rows)
-    groups = tile_rows // TREE_CLASSES
-    s = _padded_scores(emb, queries, tiles * tile_rows)
+def _class_reduce(s: torch.Tensor, tile_rows: int):
+    """The tree's residue-class selection over (Q, tiles*tile_rows)
+    figures (scores, or SQ8 bounds), padding already at NEG_INF: per
+    (tile, class) the top-2 figures with their rows and the third-best
+    figure, ties resolved as the reference's halving tree does
+    (``tree_rank_order``), in the reference's pre-packed layout."""
     q = s.shape[0]
+    tiles = s.shape[1] // tile_rows
+    groups = tile_rows // TREE_CLASSES
     order = torch.tensor(tree_rank_order(groups), device=s.device)
     ranked = s.view(q, tiles, groups, TREE_CLASSES)[:, :, order, :]
     vals, pos = stable_topk(ranked.transpose(2, 3), 3)  # (Q, tiles, 128, 3)
@@ -205,6 +218,54 @@ def tree_candidates_plain(emb: torch.Tensor, queries: torch.Tensor, tile_rows: i
     cand_i = rows.transpose(2, 3).reshape(q, tiles * 2 * TREE_CLASSES)
     bound = vals[..., 2].reshape(q, tiles * TREE_CLASSES)
     return cand_s.contiguous(), cand_i.to(torch.int32).contiguous(), bound.contiguous()
+
+
+def tree_candidates_plain(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
+    """Per (tile, residue class): the top-2 scores with their rows and the
+    third-best score (``_class_reduce``). Returns the reference's
+    pre-packed layout: (cand_s (Q, tiles*256) f32, cand_i (Q, tiles*256)
+    i32, bound (Q, tiles*128) f32)."""
+    tiles = -(-emb.shape[0] // tile_rows)
+    return _class_reduce(_padded_scores(emb, queries, tiles * tile_rows), tile_rows)
+
+
+def sq8_candidates_plain(e8: torch.Tensor, scal2: torch.Tensor,
+                         queries: torch.Tensor, qnorm: torch.Tensor,
+                         tile_rows: int = SQ8_TILE_ROWS):
+    """The SQ8 bound sweep's candidates: ``_class_reduce`` over the (Q, N)
+    f32 upper bounds ``<e8, bf16(q)> * scale + ||q|| * radd`` (int8 rows
+    widened exactly, f32 products and sums, then two rounded products and
+    one rounded sum; topk_pallas.py:560-573), rows past the corpus at
+    NEG_INF. Same layout as ``tree_candidates_plain``, with bounds in
+    place of scores."""
+    n = e8.shape[0]
+    tiles = -(-n // tile_rows)
+    qn = qnorm.to(device=e8.device, dtype=torch.float32).reshape(-1, 1)
+    dot = dense_scores(e8, queries.to(torch.float32).to(torch.bfloat16))
+    u = dot * scal2[0] + qn * scal2[1]
+    if tiles * tile_rows > n:
+        u = torch.nn.functional.pad(u, (0, tiles * tile_rows - n), value=NEG_INF)
+    return _class_reduce(u, tile_rows)
+
+
+def fused_topk_plain(emb: torch.Tensor, query: torch.Tensor, k: int):
+    """Exact top-k of one query (topk_pallas.py:129): the query normalized
+    as ``q * rsqrt(sum(q*q) + 1e-30)`` with a correctly rounded rsqrt
+    (float64 reciprocal of the float64 square root, rounded once to
+    float32), every row widened exactly and scored in f32 against the f32
+    query. Returns (scores (k,) f32, rows (k,) int64) under (score desc,
+    row asc); slots past the corpus, and rows scoring NEG_INF, read
+    (NEG_INF, -1) as in the reference."""
+    q = query.to(device=emb.device, dtype=torch.float32).reshape(-1)
+    ss = (q * q).sum() + torch.tensor(1e-30, dtype=torch.float32, device=q.device)
+    q = q * (1.0 / torch.sqrt(ss.double())).float()
+    n = emb.shape[0]
+    s = torch.empty(n, dtype=torch.float32, device=emb.device)
+    for start in range(0, n, _SCORE_BLOCK):
+        s[start : start + _SCORE_BLOCK] = emb[start : start + _SCORE_BLOCK].to(torch.float32) @ q
+    vals, pos = _pad_k(*stable_topk(s[None], min(k, n)), k)
+    real = vals[0] > NEG_INF
+    return torch.where(real, vals[0], NEG_INF), torch.where(real, pos[0], -1)
 
 
 # -- wrappers: CUDA kernel for CUDA tensors, plain version for CPU ones --
@@ -287,6 +348,89 @@ def tree_candidates(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
         bound.data_ptr(),
     ])
     return cand_s, cand_i, bound
+
+
+def sq8_candidates(e8: torch.Tensor, scal2: torch.Tensor, queries: torch.Tensor,
+                   qnorm: torch.Tensor, tile_rows: int = SQ8_TILE_ROWS):
+    """The SQ8 bound sweep's candidates (see ``sq8_candidates_plain``).
+    e8: (N, d) int8; scal2: (2, N) f32 [scale; radd]; queries: (Q, d) f32,
+    rounded to bf16 here; qnorm: (Q,) f32 norms of the unrounded queries."""
+    n, d = e8.shape
+    if e8.dtype != torch.int8 or e8.dim() != 2 or not e8.is_contiguous():
+        raise ValueError("e8 must be a contiguous (N, d) int8 tensor")
+    if d % LANES:
+        raise ValueError(f"d={d} must be a multiple of {LANES}")
+    if scal2.shape != (2, n) or scal2.dtype != torch.float32:
+        raise ValueError(f"scal2 must be (2, {n}) float32")
+    if queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"queries must be (Q, {d})")
+    nq = queries.shape[0]
+    if not 0 < nq <= LANES:
+        raise ValueError(f"Q={nq} must be in 1..{LANES}")
+    if qnorm.shape not in ((nq,), (nq, 1)):
+        raise ValueError(f"qnorm must hold {nq} norms")
+    if tile_rows < 512 or tile_rows & (tile_rows - 1):
+        raise ValueError(f"tile_rows={tile_rows} must be a power of two >= 512")
+    if n >= 1 << 31:
+        raise ValueError("corpus rows must fit int32")
+    if e8.device.type == "cpu":
+        return sq8_candidates_plain(e8, scal2, queries, qnorm, tile_rows)
+    if e8.device.type != "cuda":
+        raise ValueError(f"no kernel for device {e8.device}")
+    tiles = -(-n // tile_rows)
+    if tiles * 4 > 65535:
+        raise ValueError(f"corpus of {n} rows exceeds the SQ8 kernel's grid")
+    dev = e8.device
+    q = queries.to(device=dev, dtype=torch.float32)
+    q = q.to(torch.bfloat16).to(torch.float32).contiguous()
+    qn = qnorm.to(device=dev, dtype=torch.float32).reshape(nq).contiguous()
+    sc = scal2.to(dev).contiguous()
+    cols = tiles * TREE_CLASSES
+    cand_s = torch.empty((nq, 2 * cols), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((nq, 2 * cols), dtype=torch.int32, device=dev)
+    bound = torch.empty((nq, cols), dtype=torch.float32, device=dev)
+    _launch("sq8", e8, [
+        e8.data_ptr(), sc.data_ptr(), q.data_ptr(), qn.data_ptr(), nq, n, d,
+        tile_rows, cand_s.data_ptr(), cand_i.data_ptr(), bound.data_ptr(),
+    ])
+    return cand_s, cand_i, bound
+
+
+def fused_topk(emb: torch.Tensor, query: torch.Tensor, k: int, block_rows: int = 2048):
+    """Exact top-k of one query, normalized inside (see
+    ``fused_topk_plain``): (scores (k,) f32, rows (k,) int64) under (score
+    desc, row asc). ``block_rows`` (a power of two in 128..4096) is the
+    rows one CUDA block scores; the result does not depend on it."""
+    if emb.dim() != 2 or emb.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("emb must be an (N, d) float32/bfloat16 tensor")
+    n, d = emb.shape
+    if query.numel() != d:
+        raise ValueError(f"query must hold {d} values")
+    if not 0 < k <= LANES:
+        raise ValueError(f"k={k} must be in 1..{LANES}")
+    if block_rows < 128 or block_rows > 4096 or block_rows & (block_rows - 1):
+        raise ValueError(f"block_rows={block_rows} must be a power of two in 128..4096")
+    if d % 8 or not emb.is_contiguous():
+        raise ValueError("emb must be contiguous with d a multiple of 8")
+    if n >= 1 << 31:
+        raise ValueError("corpus rows must fit int32")
+    if emb.device.type == "cpu":
+        return fused_topk_plain(emb, query, k)
+    if emb.device.type != "cuda":
+        raise ValueError(f"no kernel for device {emb.device}")
+    dev = emb.device
+    q = query.to(device=dev, dtype=torch.float32).reshape(d).contiguous()
+    blocks = -(-n // block_rows)
+    scratch_s = torch.empty(2 * blocks * k, dtype=torch.float32, device=dev)
+    scratch_i = torch.empty(2 * blocks * k, dtype=torch.int32, device=dev)
+    out_s = torch.empty(k, dtype=torch.float32, device=dev)
+    out_i = torch.empty(k, dtype=torch.int32, device=dev)
+    _launch("stream", emb, [
+        emb.data_ptr(), int(emb.dtype == torch.bfloat16), q.data_ptr(), n, d,
+        k, block_rows, scratch_s.data_ptr(), scratch_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(),
+    ])
+    return out_s, out_i.to(torch.int64)
 
 
 # -- merges and certificates (plain torch on the candidates) --

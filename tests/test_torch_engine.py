@@ -164,12 +164,21 @@ def test_over_budget_folder_takes_host_scan(setup, tmp_path):
     q = port.encode_text("a photo of a cat")
     reader = IndexReader.open(folder)
     scores = np.asarray(reader.embeddings()) @ q
-    np.testing.assert_array_equal(got[1], np.lexsort((np.arange(7), -scores))[:3])
+    want = np.lexsort((np.arange(7), -scores))[:3]
+    np.testing.assert_array_equal(got[1], want)
     port.close()
+    # under the default EVOSSEARCH_SQ8=auto the tier needs d % 128 == 0;
+    # at d = 32 the host scan serves, as in the reference
     sq8 = SearchEngine(cfg=_configs(tmp_path, ckpt)[0], device="cpu")
     sq8.__dict__["_hbm_budget"] = 16
-    with pytest.raises(NotImplementedError, match="A11"):
-        sq8._execute_search_batch(folder, np.zeros((1, 32), np.float32), 3)
+    assert sq8.cfg.SQ8 == "auto"
+    s, i = sq8._execute_search_batch(folder, q[None], 3)
+    np.testing.assert_array_equal(i[0], want)
+    np.testing.assert_allclose(s[0], scores[want], rtol=0, atol=1e-6)
+    entry, _ = sq8._cached_index(folder)
+    assert entry["sq8"] is None and entry.get("device_bytes", 0) == 0
+    snap = sq8.counters.snapshot()
+    assert snap["host_routed_queries"] == 1 and "sq8_queries" not in snap
     sq8.close()
 
 

@@ -89,3 +89,46 @@ def test_matmul_f32_bf16_gemm_equals_widened_product():
         assert got.dtype == torch.float32 and got.shape == want.shape
         # bf16 products are exact in f32: only the summation order differs
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sq8_kernel_equals_plain():
+    _need_gpu()
+    rng = np.random.default_rng(55)
+    n, d = 70_001, 256
+    e8 = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).cuda()
+    scal2 = torch.from_numpy(np.stack([
+        (2.0 ** -rng.integers(5, 10, n)).astype(np.float32),
+        (rng.random(n) * 1e-2).astype(np.float32),
+    ])).cuda()
+    _, q = _exact_inputs(56, 1, d, 45)
+    q = q.cuda()
+    qn = torch.linalg.norm(q, dim=1)
+    # 45 and 1 queries: partial 16-query chunks; tiles of 512 and the
+    # serving tile
+    for nq, tile in ((45, 512), (1, topk.SQ8_TILE_ROWS), (45, topk.SQ8_TILE_ROWS)):
+        before = topk.LAUNCHES["sq8"]
+        got = topk.sq8_candidates(e8, scal2, q[:nq], qn[:nq], tile)
+        assert topk.LAUNCHES["sq8"] == before + 1
+        want = topk.sq8_candidates_plain(e8, scal2, q[:nq], qn[:nq], tile)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_stream_kernel_equals_plain(dtype):
+    _need_gpu()
+    rng = np.random.default_rng(57)
+    emb, _ = _exact_inputs(58, 70_001, 512, 1)
+    q = np.zeros(512, np.float32)  # 256 entries of +-1/16: norm exactly 1
+    q[rng.choice(512, 256, replace=False)] = rng.choice([-1.0, 1.0], 256) / 16
+    e, q = emb.to(DTYPES[dtype]).cuda(), torch.from_numpy(q).cuda()
+    for k, block_rows in ((48, 2048), (128, 2048), (7, 128), (128, 4096)):
+        before = topk.LAUNCHES["stream"]
+        got = topk.fused_topk(e, q, k, block_rows)
+        assert topk.LAUNCHES["stream"] == before + 1
+        want = topk.fused_topk_plain(e, q, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # fewer rows than k: padded slots read (NEG_INF, -1)
+    s, i = topk.fused_topk(e[:40], q, 48)
+    assert torch.equal(i[40:].cpu(), torch.full((8,), -1))

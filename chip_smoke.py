@@ -2,11 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the four top-k kernels from evossearch_tpu_torch/ops/csrc with
-nvcc, holds each against its plain PyTorch version and a dense oracle,
-times them, then drives three paths at full ViT-B/32 width (random
-weights, bf16 compute and store), each with the launch counts set to 0
-just before it and read just after:
+Builds the top-k kernels from evossearch_tpu_torch/ops/csrc with nvcc
+(one nvcc per source, in parallel), holds each against its plain PyTorch
+version and a dense oracle, times them, then drives four paths, each with
+the launch counts set to 0 just before it and read just after:
+
+  * the SQ8 time split (``evossearch_tpu_torch.scripts.exp_sq8_perf``):
+    B1, B3 and B3's two E1 variants (``sq8_variant``) over 1,048,576 and
+    10,485,760 seeded unit rows, and the tier's device half;
+
+and, at full ViT-B/32 width (random weights, bf16 compute and store):
 
   * the main path: the HTTP app indexes 64 JPEGs and answers /search and
     /search_by_image, and text searches over two seeded stores of 262,144
@@ -18,10 +23,14 @@ just before it and read just after:
     device budget lowered to 1536 MiB through EVOSSEARCH_HBM_BUDGET_MB
     (a store over the card's own 80% budget would need over 64 GB of
     disk), so the engine's routing sends its text and embedding searches
-    to the SQ8 tier and the int8 bound-sweep kernel.
+    to the SQ8 tier and the int8 bound-sweep kernel; one search is then
+    split into its stages (device half, copy back, row gather, rerank and
+    certificate).
 
 Every line on stdout but the last is one result: a JSON object, or the
-card's name and power limit as nvidia-smi reports them. The last line is
+card's name and power limit as nvidia-smi reports them. In the closing
+``kernels`` line, ``sq8_variant`` reports the bf16_struct variant; both
+variants have a ``kernel_check`` line. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -60,8 +69,10 @@ REPLACES = {
     "tree": "evossearch_tpu/ops/topk_pallas.py:579",
     "sq8": "evossearch_tpu/ops/topk_pallas.py:664",
     "stream": "evossearch_tpu/ops/topk_pallas.py:129",
+    "sq8_variant": "scripts/exp_sq8_perf.py:87",
 }
-SOURCES = {name: f"evossearch_tpu_torch/ops/csrc/topk_{name}.cu" for name in REPLACES}
+SOURCES = {name: f"evossearch_tpu_torch/ops/csrc/topk_{name.split('_')[0]}.cu"
+           for name in REPLACES}
 
 
 def emit(obj) -> None:
@@ -192,7 +203,8 @@ def kernel_checks(topk, search) -> dict:
             exact_cert = float(okc.float().mean())
             # (b) random unit rows
             emb = unit_rows(n, gen).to(dtype).contiguous()
-            q = unit_rows(Q, gen)
+            q_128 = unit_rows(max(QUERY_BUCKETS), gen)
+            q = q_128[:Q]
             ok, s, i = fused(emb, q, k)
             o_s, o_i = topk.stable_topk(
                 topk.dense_scores(emb, topk.prepare_queries(q, emb)), k)
@@ -219,6 +231,7 @@ def kernel_checks(topk, search) -> dict:
                 "cert_rate_unit_rows": float(okn.mean()),
                 "ms": time_ms(lambda: cand(emb, q)),
                 "ms_q1": time_ms(lambda: cand(emb, q[:1])),
+                "ms_q128": time_ms(lambda: cand(emb, q_128)),
                 "plain_ms": time_ms(lambda: plain(emb, q)),
                 "merge_ms": time_ms(lambda: fused(emb, q, k)),
                 "library_ms": time_ms(lambda: library_topk(emb, q, k)),
@@ -226,7 +239,7 @@ def kernel_checks(topk, search) -> dict:
             }
             emit(row)
             rows[(name, dname, k)] = row
-            del emb, q, q_all, out
+            del emb, q, q_128, q_all, out
             torch.cuda.empty_cache()
     return rows
 
@@ -312,6 +325,89 @@ def sq8_checks(topk) -> dict:
     del rows, e8, scal2, e_bf, out, exact
     torch.cuda.empty_cache()
     return row
+
+
+def sq8_variant_checks(topk) -> dict:
+    """E1's two variants against their plain versions: bit for bit on
+    exact-dot inputs (int8 values, also as bf16, where they are exact) at Q
+    and every query bucket; within SCORE_ATOL on unit rows quantized on the
+    card; timings and bound. library_ms is B3's yardstick: cuBLAS on the
+    corpus as bf16, plus torch.topk."""
+    from evossearch_tpu_torch.index.sq8 import quantize_rows_device
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, tile = N_SQ8, topk.SQ8_TILE_ROWS
+    e8, scal2, q_all = exact_sq8_inputs(n, gen)
+    qn_all = torch.linalg.norm(q_all, dim=1)
+    rows16 = unit_rows(n, gen).to(torch.bfloat16)
+    u8, uscal2 = quantize_rows_device(rows16)
+    q = unit_rows(Q, gen)
+    qn = torch.linalg.norm(q, dim=1)
+    bit_equal_q = (Q,) + QUERY_BUCKETS
+    out_rows = {}
+    for variant, exact, unit in (("bf16_struct", e8.to(torch.bfloat16), rows16),
+                                 ("int8_noscale", e8, u8)):
+        for nq in bit_equal_q:
+            got = topk.sq8_variant_candidates(exact, scal2, q_all[:nq], qn_all[:nq],
+                                              variant, tile)
+            torch.cuda.synchronize()
+            want = topk.sq8_variant_candidates_plain(exact, scal2, q_all[:nq],
+                                                     qn_all[:nq], variant, tile)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"sq8_variant {variant} at Q={nq} equals the plain version bit for bit")
+            del got, want
+        cand = lambda: topk.sq8_variant_candidates(unit, uscal2, q, qn, variant, tile)
+        out = cand()
+        ref = topk.sq8_variant_candidates_plain(unit, uscal2, q, qn, variant, tile)
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref)
+                  if a.dtype == torch.float32)
+        check(err <= SCORE_ATOL, f"sq8_variant {variant} figures within {SCORE_ATOL} "
+              f"of the plain version on unit rows ({err})")
+        del ref
+        nbytes = n * D * unit.element_size() + Q * D * 4
+        nbytes += (8 * n + Q * 4) if variant == "bf16_struct" else 0
+        b_ms, b_by = bound_ms_of(nbytes + sum(t.numel() * 4 for t in out),
+                                 2 * Q * n * D, torch.bfloat16)
+        e_bf = unit.to(torch.bfloat16)
+        row = {
+            "phase": "kernel_check", "kernel": "sq8_variant", "variant": variant,
+            "dtype": str(unit.dtype).replace("torch.", ""), "n": n, "d": D, "q": Q,
+            "k": 48, "tile_rows": tile, "bit_equal_plain_at_q": list(bit_equal_q),
+            "max_abs_err": err,
+            "ms": time_ms(cand),
+            "ms_q1": time_ms(lambda: topk.sq8_variant_candidates(
+                unit, uscal2, q[:1], qn[:1], variant, tile)),
+            "plain_ms": time_ms(lambda: topk.sq8_variant_candidates_plain(
+                unit, uscal2, q, qn, variant, tile)),
+            "library_ms": time_ms(lambda: library_topk(e_bf, q, 48)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit(row)
+        out_rows[variant] = row
+        del out, e_bf
+    del e8, scal2, rows16, u8, uscal2
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def sq8_split_path(topk) -> int:
+    """The SQ8 time split (scripts/exp_sq8_perf.run) with the launch counts
+    set to 0 just before and read just after; returns the E1 variants'
+    launches on this path."""
+    from evossearch_tpu_torch.scripts import exp_sq8_perf
+
+    for name in topk.LAUNCHES:
+        topk.LAUNCHES[name] = 0
+    rows = exp_sq8_perf.run()
+    launches = dict(topk.LAUNCHES)
+    check(launches["sq8_variant"] > 0, "the sq8_variant kernel ran on the sq8_split path")
+    for row in rows:
+        check(all(math.isfinite(v) and v > 0 for k, v in row.items()
+                  if k.endswith("_ms") and k != "merge_ms"),
+              f"sq8_split times at N={row['n']} are finite")
+        emit(dict(row, launches=launches))
+    torch.cuda.empty_cache()
+    return launches["sq8_variant"]
 
 
 def stream_checks(topk) -> dict:
@@ -443,6 +539,55 @@ def library_path(topk, engine, folder: Path) -> dict:
     return launches
 
 
+def sq8_stage_split(topk, idx, query: np.ndarray, k: int, reps: int = 10) -> dict:
+    """One embedding search of the SQ8 tier split into its stages, timed
+    around the tier's own calls in SQ8Index.search_batch's order (median
+    host-clock ms over ``reps``): the device half (``_sq8_select``, then a
+    synchronize; also its CUDA-event time), the copy of its four outputs to
+    the host, the row gather off the mmap store (``_gather_rows``), and the
+    host rerank plus certificate (``rerank_and_certify`` handed the rows
+    just gathered); beside them, the whole ``search_batch``."""
+    from evossearch_tpu_torch.index.sq8 import _sq8_select, rerank_and_certify
+
+    q = np.asarray(query, np.float32)[None]
+    tile = idx.tile_rows
+    c_total = -(-idx.n // tile) * 2 * topk.TREE_CLASSES
+    fetch = min(max(idx.fetch, k + 32), c_total)
+    qd = torch.tensor(q, device=idx._e8_d.device)
+    laps = {name: [] for name in ("device", "copy", "gather", "rerank_cert", "search")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = _sq8_select(idx._e8_d, idx._scal2_d, qd, fetch, tile)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fb, ids, cnt_ok, m3max = (t.cpu().numpy() for t in out)
+        t2 = time.perf_counter()
+        finite = np.isfinite(fb) & (fb > np.float32(topk.NEG_INF) / 2)
+        ids = np.where(finite, ids, 0)
+        rows = idx._gather_rows(np.unique(ids))
+        t3 = time.perf_counter()
+        mf = fb[:, -1]
+
+        def cert(qi, m):
+            return bool(m3max[qi] < m
+                        and (fetch == c_total or (cnt_ok[qi] and m >= mf[qi])))
+
+        idx._gather_rows = lambda _ids: rows  # measurement only: no second gather
+        try:
+            rerank_and_certify(idx, q, ids, finite, k, cert)
+        finally:
+            del idx._gather_rows
+        t4 = time.perf_counter()
+        idx.search_batch(q, k)
+        t5 = time.perf_counter()
+        for name, lap in zip(laps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            laps[name].append(lap * 1e3)
+    split = {f"stage_{name}_ms": statistics.median(v) for name, v in laps.items()}
+    split["stage_device_event_ms"] = time_ms(
+        lambda: _sq8_select(idx._e8_d, idx._scal2_d, qd, fetch, tile))
+    return split
+
+
 def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
     """The SQ8 tier's path: a 2,097,152-row bf16 store over a device budget
     lowered to SQ8_BUDGET_MB, searched through the engine's normal
@@ -542,6 +687,7 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
     check(eng2.counters.snapshot().get("sq8_queries", 0) == 1
           and np.array_equal(again[1], results[("emb", 0)][1]),
           "the second engine served the folder from the persisted sidecar")
+    stages = sq8_stage_split(topk, entry["sq8"], embs[0], 48)
     row = {"phase": "over_budget_path", "n": N_SQ8, "launches": launches,
            "first_search_s": first_s, "sidecar_build_s": build_s,
            "text_k48_ms": text48_ms, "search_ms_sequential_k48": seq_ms,
@@ -549,7 +695,7 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
            "sq8_queries": snap.get("sq8_queries", 0),
            "sq8_fallback_queries": snap.get("sq8_fallback_queries", 0),
            "host_routed_queries": snap.get("host_routed_queries", 0),
-           "host_oracle_s": oracle_s, "equals_host_scan": True}
+           "host_oracle_s": oracle_s, "equals_host_scan": True, **stages}
     emit(row)
     eng2.close()
     eng.close()
@@ -712,20 +858,26 @@ def main() -> int:
         name: sorted({int(x) for x in re.findall(r"Used (\d+) registers", log["log"])})
         for name, log in _build.BUILD_LOG.items()
     }
+    spills = {name: max((int(x) for x in re.findall(r"(\d+) bytes spill stores", log["log"])),
+                        default=0)
+              for name, log in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": build_s, "arch": "sm_90a",
           "libraries": {k: str(v.relative_to(Path.cwd())) if v.is_relative_to(Path.cwd())
                         else str(v) for k, v in libs.items()},
-          "registers_per_thread": regs})
+          "registers_per_thread": regs, "max_spill_store_bytes": spills})
 
     rows = kernel_checks(topk, search)
     rows[("sq8", "int8", 48)] = sq8_checks(topk)
+    rows[("sq8_variant", "bf16", 48)] = sq8_variant_checks(topk)["bf16_struct"]
     for (dname, k), row in stream_checks(topk).items():
         rows[("stream", dname, k)] = row
+    variant_launches = sq8_split_path(topk)
     launches = main_path(topk, search)
+    launches["sq8_variant"] = variant_launches
 
     kernels = []
     for name, dname in (("tree", "bf16"), ("block", "bf16"), ("sq8", "int8"),
-                        ("stream", "bf16")):
+                        ("stream", "bf16"), ("sq8_variant", "bf16")):
         row = rows[(name, dname, 48)]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -6,6 +6,7 @@ from .constants import (
     CLIPResNetSpec,
 )
 from .config import Config, config, load_env_file, write_env_file
+from .device import resolve_device
 
 __all__ = [
     "CLIP_IMAGE_MEAN",
@@ -16,5 +17,6 @@ __all__ = [
     "Config",
     "config",
     "load_env_file",
+    "resolve_device",
     "write_env_file",
 ]

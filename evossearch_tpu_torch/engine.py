@@ -32,6 +32,7 @@ import torch
 
 from .core import CLIP_MODEL_SPECS, Config, config as default_config
 from .core.constants import CLIPModelSpec
+from .core.device import resolve_device
 from .index import build_index
 from .index.store import IndexReader, as_float32
 from .tokenizer import load_tokenizer
@@ -40,22 +41,6 @@ from .utils import Counters, StageTimer, get_logger
 log = get_logger("engine")
 
 _UNSET = object()  # lock-free "not initialized" sentinel (batchers, SQ8)
-
-
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The engine's device: ``device`` as given, else the first GPU; with
-    no GPU a caller must ask for the CPU explicitly."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: pass device='cpu' to run on "
-                "the CPU"
-            )
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -137,7 +122,7 @@ class SearchEngine:
         if params is not None and not isinstance(params, torch.nn.Module):
             from .models import params_from_numpy
 
-            params = params_from_numpy(params, self.spec)
+            params = params_from_numpy(params, self.spec, self.device)
         self._params = None if params is None else params.to(self.device)
         self._params_lock = threading.Lock()
         if params is None and self.cfg.CHECKPOINT_PATH:

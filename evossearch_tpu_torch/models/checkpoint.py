@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.constants import CLIPModelSpec, CLIPResNetSpec
+from ..core.device import resolve_device
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -72,14 +73,16 @@ def load_params(path: str | Path) -> tuple[dict, CLIPModelSpec]:
 
 
 def params_from_numpy(tree: dict, spec: CLIPModelSpec,
-                      device: str | torch.device = "cpu"):
+                      device: str | torch.device | None = None):
     """The JAX package's param pytree (numpy leaves: stacked ``(L, ...)``
     block leaves, ``(in, out)`` dense kernels) as a port :class:`CLIP`
-    module on ``device``. Layer ``l`` of a stacked leaf
+    module on ``device`` (None: the GPU, or a raise without one; pass
+    ``"cpu"`` for the CPU). Layer ``l`` of a stacked leaf
     ``visual/blocks/attn/wqkv`` becomes ``visual.blocks.l.attn.wqkv``;
     every leaf must match a parameter exactly."""
     from .clip import CLIP
 
+    device = resolve_device(device)
     state = {}
     for name, value in _flatten(tree).items():
         arr = np.array(value, np.float32)  # a writable copy
@@ -97,7 +100,8 @@ def params_from_numpy(tree: dict, spec: CLIPModelSpec,
     return model.to(device).eval()
 
 
-def load_model(path: str | Path, device: str | torch.device = "cpu"):
-    """Native npz checkpoint -> (CLIP module on ``device``, spec)."""
+def load_model(path: str | Path, device: str | torch.device | None = None):
+    """Native npz checkpoint -> (CLIP module on ``device``, spec); the
+    device as ``params_from_numpy`` resolves it."""
     tree, spec = load_params(path)
     return params_from_numpy(tree, spec, device), spec

@@ -31,12 +31,18 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the entry points (see the .cu files)
+# entry point -> (library, C symbol, C signature) (see the .cu files)
 _SIGNATURES = {
-    "topk_block": ("evs_topk_block", [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "topk_tree": ("evs_topk_tree", [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
-    "topk_sq8": ("evs_topk_sq8", [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
-    "topk_stream": ("evs_topk_stream", [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "topk_block": ("topk_block", "evs_topk_block",
+                   [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "topk_tree": ("topk_tree", "evs_topk_tree",
+                  [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "topk_sq8": ("topk_sq8", "evs_topk_sq8",
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "topk_sq8_variant": ("topk_sq8", "evs_topk_sq8_variant",
+                         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "topk_stream": ("topk_stream", "evs_topk_stream",
+                    [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -104,15 +110,16 @@ def build(names=KERNELS) -> dict[str, Path]:
 
 
 def entry(name: str):
-    """The C entry point of kernel ``name``, building it if needed."""
+    """The C entry point ``name`` (a key of ``_SIGNATURES``), building its
+    library if needed."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
-    path = build((name,))[name]
+    lib, symbol, argtypes = _SIGNATURES[name]
+    path = build((lib,))[lib]
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
-            symbol, argtypes = _SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -1,6 +1,9 @@
-// Residue-class selection shared by the tree kernel (B1, topk_tree.cu) and
-// the SQ8 bound sweep (B3, topk_sq8.cu), as the reference's two kernels
-// share _tree_reduce_emit (evossearch_tpu/ops/topk_pallas.py:417-517).
+// Residue-class selection shared by the tree kernel's f32 path (B1,
+// topk_tree.cu), the SQ8 bound sweep (B3, topk_sq8.cu) and B3's time-split
+// variants (E1, topk_sq8.cu), as the reference's kernels share
+// _tree_reduce_emit (evossearch_tpu/ops/topk_pallas.py:417-517). The tree
+// kernel's bf16 path walks the same rank order on the tensor cores
+// (topk_tree.cu:tree_tc_kernel).
 //
 // The corpus is cut into tiles of tile_rows rows; residue class j of tile
 // t is the rows t*tile_rows + j + 128*g, g < G = tile_rows/128. For every

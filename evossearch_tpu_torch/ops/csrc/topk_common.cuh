@@ -1,7 +1,7 @@
-// Shared device code of the candidate kernels (topk_block.cu, topk_tree.cu
-// and topk_sq8.cu): a per-thread dot product of one corpus row against a
-// register tile of QM queries, a running top-LEV insertion, and a warp
-// merge of those running states.
+// Shared device code of the CUDA-core candidate kernels (topk_block.cu,
+// topk_tree.cu's f32 path and topk_sq8.cu): a per-thread dot product of
+// one corpus row against a register tile of QM queries, a running top-LEV
+// insertion, and a warp merge of those running states.
 //
 // Both kernels select per "slot" (a 256-row block, or one residue class of
 // a tile) over a sequence of rows given in a fixed order. A thread keeps,

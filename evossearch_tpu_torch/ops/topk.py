@@ -15,18 +15,23 @@ on the dense exact path.
   score as the bound.
 ``tree`` (B1, ``csrc/topk_tree.cu``): per (tile, residue class
   ``row % 128``), the reference halving tree's top-2 rows and its
-  third-best score as the bound.
+  third-best score as the bound; bf16 corpora on the tensor cores, f32
+  ones on the CUDA cores.
 ``sq8`` (B3, ``csrc/topk_sq8.cu``): the tree's selection over certified
   upper bounds ``<e8, bf16(q)> * scale + ||q|| * radd`` of an int8 corpus
   (the SQ8 capacity tier, ``index/sq8.py``).
+``sq8_variant`` (E1, ``csrc/topk_sq8.cu``): B3 with one piece taken out,
+  to split its time (``scripts/exp_sq8_perf.py``): ``bf16_struct`` (B3's
+  bound over a bf16 corpus) and ``int8_noscale`` (the raw int8 dot). No
+  search uses them.
 ``stream`` (B4, ``csrc/topk_stream.cu``): the exact top-k of ONE query,
   normalized in the kernel (``fused_topk``; a library entry point, no
   engine route uses it).
 
 Each wrapper (``block_candidates``, ``tree_candidates``,
-``sq8_candidates``, ``fused_topk``) launches its CUDA kernel for a tensor
-on a CUDA device and runs the plain torch version (``*_plain``) only for a
-tensor on the CPU; anything else raises. The plain versions compute the
+``sq8_candidates``, ``sq8_variant_candidates``, ``fused_topk``) launches
+its CUDA kernel for a tensor on a CUDA device and runs the plain torch
+version (``*_plain``) only for a tensor on the CPU; anything else raises. The plain versions compute the
 same function and are what the CPU tests hold against the reference's
 Pallas kernels in interpret mode.
 
@@ -63,13 +68,15 @@ _TREE_FETCH_PAD = 32
 
 # Kernel launches per wrapper, counted where the CUDA kernel is launched
 # and nowhere else (plain CPU runs do not count).
-LAUNCHES = {"block": 0, "tree": 0, "sq8": 0, "stream": 0}
+LAUNCHES = {"block": 0, "tree": 0, "sq8": 0, "sq8_variant": 0, "stream": 0}
 
 # SQ8 tile: one 256-candidate block per 32768 rows, half the tree kernel's
 # bf16 candidate density (topk_pallas.py:653-661). The certificate's
 # failure rate and the merge's work depend on it, so it stays the
 # reference's value.
 SQ8_TILE_ROWS = 32768
+# E1's variants of the SQ8 sweep and the corpus dtype each takes
+SQ8_VARIANTS = {"bf16_struct": torch.bfloat16, "int8_noscale": torch.int8}
 
 
 def default_levels(n_rows: int) -> int:
@@ -248,6 +255,20 @@ def sq8_candidates_plain(e8: torch.Tensor, scal2: torch.Tensor,
     return _class_reduce(u, tile_rows)
 
 
+def sq8_variant_candidates_plain(corpus: torch.Tensor, scal2, queries: torch.Tensor,
+                                 qnorm, variant: str, tile_rows: int = SQ8_TILE_ROWS):
+    """E1's variants of the SQ8 sweep, same layout as
+    ``sq8_candidates_plain``: ``bf16_struct`` is its bound formula over a
+    bf16 corpus; ``int8_noscale`` is ``_class_reduce`` over the raw dots
+    ``<e8, bf16(q)>`` of an int8 corpus (``scal2`` and ``qnorm`` unused),
+    rows past the corpus at NEG_INF."""
+    if variant == "bf16_struct":
+        return sq8_candidates_plain(corpus, scal2, queries, qnorm, tile_rows)
+    tiles = -(-corpus.shape[0] // tile_rows)
+    qb = queries.to(torch.float32).to(torch.bfloat16)
+    return _class_reduce(_padded_scores(corpus, qb, tiles * tile_rows), tile_rows)
+
+
 def fused_topk_plain(emb: torch.Tensor, query: torch.Tensor, k: int):
     """Exact top-k of one query (topk_pallas.py:129): the query normalized
     as ``q * rsqrt(sum(q*q) + 1e-30)`` with a correctly rounded rsqrt
@@ -336,7 +357,9 @@ def tree_candidates(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
     n, d = emb.shape
     nq = q.shape[0]
     tiles = -(-n // tile_rows)
-    if tiles * 4 > 65535:
+    # the f32 path's grid holds 4 blocks of every tile in its y dimension;
+    # the bf16 path's x dimension holds any int32 row count
+    if emb.dtype == torch.float32 and tiles * 4 > 65535:
         raise ValueError(f"corpus of {n} rows exceeds the tree kernel's grid")
     cols = tiles * TREE_CLASSES
     cand_s = torch.empty((nq, 2 * cols), dtype=torch.float32, device=emb.device)
@@ -350,50 +373,92 @@ def tree_candidates(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
     return cand_s, cand_i, bound
 
 
-def sq8_candidates(e8: torch.Tensor, scal2: torch.Tensor, queries: torch.Tensor,
-                   qnorm: torch.Tensor, tile_rows: int = SQ8_TILE_ROWS):
-    """The SQ8 bound sweep's candidates (see ``sq8_candidates_plain``).
-    e8: (N, d) int8; scal2: (2, N) f32 [scale; radd]; queries: (Q, d) f32,
-    rounded to bf16 here; qnorm: (Q,) f32 norms of the unrounded queries."""
-    n, d = e8.shape
-    if e8.dtype != torch.int8 or e8.dim() != 2 or not e8.is_contiguous():
-        raise ValueError("e8 must be a contiguous (N, d) int8 tensor")
+def _check_sq8(corpus: torch.Tensor, dtype, scal2, queries: torch.Tensor,
+               qnorm, tile_rows: int) -> None:
+    """Arguments of the SQ8 sweep and its variants; ``scal2`` and
+    ``qnorm`` may be None only where the caller does not read them."""
+    if corpus.dtype != dtype or corpus.dim() != 2 or not corpus.is_contiguous():
+        raise ValueError(f"the corpus must be a contiguous (N, d) {dtype} tensor")
+    n, d = corpus.shape
     if d % LANES:
         raise ValueError(f"d={d} must be a multiple of {LANES}")
-    if scal2.shape != (2, n) or scal2.dtype != torch.float32:
+    if scal2 is not None and (scal2.shape != (2, n) or scal2.dtype != torch.float32):
         raise ValueError(f"scal2 must be (2, {n}) float32")
     if queries.dim() != 2 or queries.shape[1] != d:
         raise ValueError(f"queries must be (Q, {d})")
     nq = queries.shape[0]
     if not 0 < nq <= LANES:
         raise ValueError(f"Q={nq} must be in 1..{LANES}")
-    if qnorm.shape not in ((nq,), (nq, 1)):
+    if qnorm is not None and qnorm.shape not in ((nq,), (nq, 1)):
         raise ValueError(f"qnorm must hold {nq} norms")
     if tile_rows < 512 or tile_rows & (tile_rows - 1):
         raise ValueError(f"tile_rows={tile_rows} must be a power of two >= 512")
     if n >= 1 << 31:
         raise ValueError("corpus rows must fit int32")
-    if e8.device.type == "cpu":
-        return sq8_candidates_plain(e8, scal2, queries, qnorm, tile_rows)
-    if e8.device.type != "cuda":
-        raise ValueError(f"no kernel for device {e8.device}")
-    tiles = -(-n // tile_rows)
-    if tiles * 4 > 65535:
+    if corpus.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {corpus.device}")
+    if corpus.device.type == "cuda" and -(-n // tile_rows) * 4 > 65535:
         raise ValueError(f"corpus of {n} rows exceeds the SQ8 kernel's grid")
-    dev = e8.device
+
+
+def _sq8_launch(name: str, corpus: torch.Tensor, scal2, queries: torch.Tensor,
+                qnorm, tile_rows: int, head: list):
+    """Launch the SQ8 sweep (or a variant, ``head`` = [variant]) on the
+    corpus's CUDA device: queries rounded to bf16, outputs allocated."""
+    dev = corpus.device
+    n, d = corpus.shape
+    nq = queries.shape[0]
     q = queries.to(device=dev, dtype=torch.float32)
     q = q.to(torch.bfloat16).to(torch.float32).contiguous()
-    qn = qnorm.to(device=dev, dtype=torch.float32).reshape(nq).contiguous()
-    sc = scal2.to(dev).contiguous()
-    cols = tiles * TREE_CLASSES
+    qn = sc = None
+    if qnorm is not None:
+        qn = qnorm.to(device=dev, dtype=torch.float32).reshape(nq).contiguous()
+    if scal2 is not None:
+        sc = scal2.to(dev).contiguous()
+    cols = -(-n // tile_rows) * TREE_CLASSES
     cand_s = torch.empty((nq, 2 * cols), dtype=torch.float32, device=dev)
     cand_i = torch.empty((nq, 2 * cols), dtype=torch.int32, device=dev)
     bound = torch.empty((nq, cols), dtype=torch.float32, device=dev)
-    _launch("sq8", e8, [
-        e8.data_ptr(), sc.data_ptr(), q.data_ptr(), qn.data_ptr(), nq, n, d,
-        tile_rows, cand_s.data_ptr(), cand_i.data_ptr(), bound.data_ptr(),
+    _launch(name, corpus, head + [
+        corpus.data_ptr(), None if sc is None else sc.data_ptr(), q.data_ptr(),
+        None if qn is None else qn.data_ptr(), nq, n, d, tile_rows,
+        cand_s.data_ptr(), cand_i.data_ptr(), bound.data_ptr(),
     ])
     return cand_s, cand_i, bound
+
+
+def sq8_candidates(e8: torch.Tensor, scal2: torch.Tensor, queries: torch.Tensor,
+                   qnorm: torch.Tensor, tile_rows: int = SQ8_TILE_ROWS):
+    """The SQ8 bound sweep's candidates (see ``sq8_candidates_plain``).
+    e8: (N, d) int8; scal2: (2, N) f32 [scale; radd]; queries: (Q, d) f32,
+    rounded to bf16 here; qnorm: (Q,) f32 norms of the unrounded queries."""
+    if scal2 is None or qnorm is None:
+        raise ValueError("the SQ8 sweep needs scal2 and qnorm")
+    _check_sq8(e8, torch.int8, scal2, queries, qnorm, tile_rows)
+    if e8.device.type == "cpu":
+        return sq8_candidates_plain(e8, scal2, queries, qnorm, tile_rows)
+    return _sq8_launch("sq8", e8, scal2, queries, qnorm, tile_rows, [])
+
+
+def sq8_variant_candidates(corpus: torch.Tensor, scal2, queries: torch.Tensor,
+                           qnorm, variant: str, tile_rows: int = SQ8_TILE_ROWS):
+    """E1's variants of the SQ8 sweep (see
+    ``sq8_variant_candidates_plain``). ``bf16_struct``: corpus (N, d) bf16,
+    scal2 and qnorm as ``sq8_candidates``; ``int8_noscale``: corpus (N, d)
+    int8, scal2 and qnorm unused (may be None). Queries are rounded to bf16
+    here."""
+    if variant not in SQ8_VARIANTS:
+        raise ValueError(f"variant={variant!r} is not one of {sorted(SQ8_VARIANTS)}")
+    if variant == "bf16_struct" and (scal2 is None or qnorm is None):
+        raise ValueError("bf16_struct needs scal2 and qnorm")
+    if variant == "int8_noscale":
+        scal2 = qnorm = None
+    _check_sq8(corpus, SQ8_VARIANTS[variant], scal2, queries, qnorm, tile_rows)
+    if corpus.device.type == "cpu":
+        return sq8_variant_candidates_plain(corpus, scal2, queries, qnorm,
+                                            variant, tile_rows)
+    return _sq8_launch("sq8_variant", corpus, scal2, queries, qnorm, tile_rows,
+                       [list(SQ8_VARIANTS).index(variant)])
 
 
 def fused_topk(emb: torch.Tensor, query: torch.Tensor, k: int, block_rows: int = 2048):

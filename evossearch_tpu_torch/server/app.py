@@ -97,7 +97,7 @@ def _validated_limit(raw, cfg: Config) -> int:
 def create_app(engine: SearchEngine | None = None, cfg: Config | None = None,
                device=None) -> App:
     """The HTTP app over ``engine``, or over a new engine on ``device``
-    (the GPU unless ``"cpu"`` is asked for; see engine.resolve_device)."""
+    (the GPU unless ``"cpu"`` is asked for; see core.resolve_device)."""
     cfg = cfg or default_config
     engine = engine or SearchEngine(cfg=cfg, device=device)
     # +1 MiB headroom over the configured max upload for multipart framing

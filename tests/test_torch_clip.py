@@ -47,7 +47,7 @@ def _inputs(spec, seed=0):
 def test_embeddings_match_through_npz(spec, tmp_path):
     params = init_params(jax.random.key(3), spec)
     path = save_params(tmp_path / "ckpt.npz", params, spec)
-    model, loaded_spec = load_model(path)
+    model, loaded_spec = load_model(path, device="cpu")
     assert dataclasses.asdict(loaded_spec) == dataclasses.asdict(spec)
     images, tokens = _inputs(spec)
     want_img = np.asarray(ref_encode_image(params, jnp.asarray(images), spec))
@@ -59,7 +59,7 @@ def test_embeddings_match_through_npz(spec, tmp_path):
 
     # the bridge over the in-memory tree gives the same module
     tree = jax.tree_util.tree_map(np.asarray, params)
-    bridged = params_from_numpy(tree, spec)
+    bridged = params_from_numpy(tree, spec, device="cpu")
     for (name, a), (name_b, b) in zip(
         model.state_dict().items(), bridged.state_dict().items()
     ):
@@ -72,7 +72,8 @@ def test_bf16_compute_close_to_reference():
     fuse elementwise ops in f32 where PyTorch rounds each; the stated bar
     is the embeddings' cosine."""
     params = init_params(jax.random.key(4), TINY)
-    model = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), TINY)
+    model = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), TINY,
+                              device="cpu")
     images, tokens = _inputs(TINY, seed=1)
     want = np.asarray(ref_encode_image(
         params, jnp.asarray(images), TINY, compute_dtype=jnp.bfloat16))
@@ -88,7 +89,21 @@ def test_bridge_rejects_missing_leaves():
     params = jax.tree_util.tree_map(np.asarray, init_params(jax.random.key(0), TINY))
     del params["visual"]["proj"]
     with pytest.raises(RuntimeError):
-        params_from_numpy(params, TINY)
+        params_from_numpy(params, TINY, device="cpu")
+
+
+def test_default_device_is_the_gpu_or_a_raise(tmp_path):
+    """With no device, both entry points take the GPU; without one they
+    raise rather than fall back to the CPU (decided here, in the body)."""
+    params = jax.tree_util.tree_map(np.asarray, init_params(jax.random.key(5), TINY))
+    path = save_params(tmp_path / "ckpt.npz", params, TINY)
+    calls = (lambda: params_from_numpy(params, TINY), lambda: load_model(path)[0])
+    for call in calls:
+        if torch.cuda.is_available():
+            assert next(call().parameters()).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
 
 
 def test_random_init_is_seeded():

@@ -62,6 +62,25 @@ def test_tree_kernel_equals_plain(dtype, tile_rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile_rows", [512, 16384])
+def test_tree_bf16_tensor_core_kernel_equals_plain(tile_rows):
+    """The bf16 path on the tensor cores, bit for bit on exact-dot inputs:
+    every query bucket, Q = 48, and Q = 96 (the ring of 4, 3 and 2 slots
+    at d = 512); tile 512 gives 32-class blocks, the 5 tiles of 16384
+    16-class blocks; d = 768 at Q = 128 cuts the queries into chunks."""
+    _need_gpu()
+    for d, counts in ((512, (1, 8, 48, 64, 96, 128)), (768, (128,))):
+        emb, q = _exact_inputs(59, 70_001, d, 128)
+        e, q = emb.to(torch.bfloat16).cuda(), q.cuda()
+        for nq in counts:
+            before = topk.LAUNCHES["tree"]
+            got = topk.tree_candidates(e, q[:nq], tile_rows)
+            assert topk.LAUNCHES["tree"] == before + 1
+            want = topk.tree_candidates_plain(e, q[:nq], tile_rows)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (d, nq)
+
+
+@pytest.mark.gpu
 def test_search_on_gpu_equals_cpu():
     _need_gpu()
     emb, q = _exact_inputs(53, 300_000, 128, 9)
@@ -111,6 +130,30 @@ def test_sq8_kernel_equals_plain():
         got = topk.sq8_candidates(e8, scal2, q[:nq], qn[:nq], tile)
         assert topk.LAUNCHES["sq8"] == before + 1
         want = topk.sq8_candidates_plain(e8, scal2, q[:nq], qn[:nq], tile)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", sorted(topk.SQ8_VARIANTS))
+def test_sq8_variant_kernels_equal_plain(variant):
+    _need_gpu()
+    rng = np.random.default_rng(60)
+    n, d = 70_001, 256
+    e8 = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8))
+    corpus = (e8.float().to(torch.bfloat16) if variant == "bf16_struct" else e8).cuda()
+    scal2 = torch.from_numpy(np.stack([
+        (2.0 ** -rng.integers(5, 10, n)).astype(np.float32),
+        (rng.random(n) * 1e-2).astype(np.float32),
+    ])).cuda()
+    _, q = _exact_inputs(61, 1, d, 45)
+    q = q.cuda()
+    qn = torch.linalg.norm(q, dim=1)
+    for nq, tile in ((45, 512), (1, topk.SQ8_TILE_ROWS), (45, topk.SQ8_TILE_ROWS)):
+        before = topk.LAUNCHES["sq8_variant"]
+        got = topk.sq8_variant_candidates(corpus, scal2, q[:nq], qn[:nq], variant, tile)
+        assert topk.LAUNCHES["sq8_variant"] == before + 1
+        want = topk.sq8_variant_candidates_plain(corpus, scal2, q[:nq], qn[:nq],
+                                                 variant, tile)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

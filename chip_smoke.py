@@ -58,6 +58,7 @@ QUERY_BUCKETS = (1, 8, 64, 128)  # query rows the serving path pads a batch to
 N_BLOCK = 1 << 18   # smallest store the kernels serve: the block kernel at k=48
 N_TREE = 1 << 20    # the tree kernel at k=12 and k=48
 N_SQ8 = 1 << 21     # the over-budget folder, and the SQ8 kernel checks
+N_SQ8_TAIL = 1_000_003  # a partial last SQ8 tile, n % 4 != 0 (radd unaligned)
 N_STREAM = 1 << 20  # the stream kernel checks
 SQ8_BUDGET_MB = 1536  # corpus 2 GiB over it, sidecar 1.02 GiB within it
 SQ8_FETCH = 512       # the tier's default fetch (EVOSSEARCH_SQ8_FETCH)
@@ -258,24 +259,27 @@ def exact_sq8_inputs(n: int, gen: torch.Generator):
 
 def sq8_checks(topk) -> dict:
     """The SQ8 bound sweep against its plain version (bit for bit on
-    exact-dot inputs at Q and every query bucket; within SCORE_ATOL on
-    unit rows quantized on the card), the rigor of every emitted bound,
-    the certification rate, timings and bound."""
+    exact-dot inputs at Q and every query bucket, at N_SQ8 rows and at
+    N_SQ8_TAIL rows; within SCORE_ATOL on unit rows quantized on the card),
+    the rigor of every emitted bound, the certification rate beside the
+    plain version's, timings and bound."""
+    from evossearch_tpu_torch.index import sq8 as sq8_mod
     from evossearch_tpu_torch.index.sq8 import _sq8_select, quantize_rows_device
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     n, tile = N_SQ8, topk.SQ8_TILE_ROWS
-    e8, scal2, q_all = exact_sq8_inputs(n, gen)
-    qn_all = torch.linalg.norm(q_all, dim=1)
     bit_equal_q = (Q,) + QUERY_BUCKETS
-    for nq in bit_equal_q:
-        got = topk.sq8_candidates(e8, scal2, q_all[:nq], qn_all[:nq], tile)
-        torch.cuda.synchronize()
-        want = topk.sq8_candidates_plain(e8, scal2, q_all[:nq], qn_all[:nq], tile)
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"sq8 candidates at Q={nq} equal the plain version bit for bit")
-        del got, want
-    del e8, scal2, q_all
+    for rows_n in (n, N_SQ8_TAIL):
+        e8, scal2, q_all = exact_sq8_inputs(rows_n, gen)
+        qn_all = torch.linalg.norm(q_all, dim=1)
+        for nq in bit_equal_q:
+            got = topk.sq8_candidates(e8, scal2, q_all[:nq], qn_all[:nq], tile)
+            torch.cuda.synchronize()
+            want = topk.sq8_candidates_plain(e8, scal2, q_all[:nq], qn_all[:nq], tile)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"sq8 candidates at N={rows_n} Q={nq} equal the plain version bit for bit")
+            del got, want
+        del e8, scal2, q_all
     # unit rows of a bf16 store, quantized on the card
     rows = unit_rows(n, gen).to(torch.bfloat16).float()
     e8, scal2 = quantize_rows_device(rows)
@@ -297,25 +301,44 @@ def sq8_checks(topk) -> dict:
         worst = max(worst, float((exact - cand_s).max()))
     check(worst <= 0, f"every sq8 candidate bound >= its row's exact score ({worst})")
     # certification rate of the tier at k = 48: the device half, then the
-    # rerank's certificate computed here on the card
+    # rerank's certificate computed here on the card; beside it the same
+    # with the plain version's candidates, which the kernel may trail by at
+    # most one query
     k = 48
-    fb, fid, cnt_ok, m3max = _sq8_select(e8, scal2, q, SQ8_FETCH, tile)
     qb = q.bfloat16().float()
-    exact = (rows[fid] * qb[:, None, :]).sum(-1)
-    m = torch.topk(exact, k, dim=1).values[:, -1]
-    cert = (m3max < m) & cnt_ok & (m >= fb[:, -1])
+
+    def certified():
+        fb, fid, cnt_ok, m3max = _sq8_select(e8, scal2, q, SQ8_FETCH, tile)
+        exact = (rows[fid] * qb[:, None, :]).sum(-1)
+        m = torch.topk(exact, k, dim=1).values[:, -1]
+        return (m3max < m) & cnt_ok & (m >= fb[:, -1])
+
+    cert = certified()
+    sq8_mod.sq8_candidates = topk.sq8_candidates_plain
+    try:
+        cert_plain = certified()
+    finally:
+        sq8_mod.sq8_candidates = topk.sq8_candidates
+    check(int(cert.sum()) >= int(cert_plain.sum()) - 1,
+          f"sq8 certifies {int(cert.sum())} of {Q} queries at k = {k}, at most one "
+          f"fewer than with the plain version's candidates ({int(cert_plain.sum())})")
     b_ms, b_by = bound_ms_of(
         n * D + 8 * n + Q * D * 4 + Q * 4 + sum(t.numel() * 4 for t in out),
         2 * Q * n * D, torch.bfloat16)
     e_bf = e8.to(torch.bfloat16)  # the library yardstick's widened corpus
+    q_128 = unit_rows(max(QUERY_BUCKETS), gen)
+    qn_128 = torch.linalg.norm(q_128, dim=1)
     row = {
         "phase": "kernel_check", "kernel": "sq8", "dtype": "int8", "n": n,
         "d": D, "q": Q, "k": k, "tile_rows": tile,
-        "bit_equal_plain_at_q": list(bit_equal_q), "max_abs_err": err,
+        "bit_equal_plain_at_q": list(bit_equal_q),
+        "bit_equal_plain_at_n": [n, N_SQ8_TAIL], "max_abs_err": err,
         "bound_minus_exact_max": worst,
         "cert_rate_unit_rows": float(cert.float().mean()),
+        "cert_rate_unit_rows_plain": float(cert_plain.float().mean()),
         "ms": time_ms(lambda: topk.sq8_candidates(e8, scal2, q, qn, tile)),
         "ms_q1": time_ms(lambda: topk.sq8_candidates(e8, scal2, q[:1], qn[:1], tile)),
+        "ms_q128": time_ms(lambda: topk.sq8_candidates(e8, scal2, q_128, qn_128, tile)),
         "plain_ms": time_ms(lambda: topk.sq8_candidates_plain(e8, scal2, q, qn, tile)),
         "merge_ms": time_ms(lambda: _sq8_select(e8, scal2, q, SQ8_FETCH, tile)),
         "library_ms": time_ms(lambda: library_topk(e_bf, q, k)),
@@ -330,39 +353,51 @@ def sq8_checks(topk) -> dict:
 def sq8_variant_checks(topk) -> dict:
     """E1's two variants against their plain versions: bit for bit on
     exact-dot inputs (int8 values, also as bf16, where they are exact) at Q
-    and every query bucket; within SCORE_ATOL on unit rows quantized on the
-    card; timings and bound. library_ms is B3's yardstick: cuBLAS on the
-    corpus as bf16, plus torch.topk."""
+    and every query bucket, at N_SQ8 and N_SQ8_TAIL rows; within
+    SCORE_ATOL on unit rows quantized on the card; the tensor cores'
+    accumulation (``accumulation_check``); timings and bound. library_ms is
+    B3's yardstick: cuBLAS on the corpus as bf16, plus torch.topk."""
     from evossearch_tpu_torch.index.sq8 import quantize_rows_device
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     n, tile = N_SQ8, topk.SQ8_TILE_ROWS
-    e8, scal2, q_all = exact_sq8_inputs(n, gen)
-    qn_all = torch.linalg.norm(q_all, dim=1)
+    bit_equal_q = (Q,) + QUERY_BUCKETS
+    for rows_n in (n, N_SQ8_TAIL):
+        e8, scal2, q_all = exact_sq8_inputs(rows_n, gen)
+        qn_all = torch.linalg.norm(q_all, dim=1)
+        for variant, exact in (("bf16_struct", e8.to(torch.bfloat16)),
+                               ("int8_noscale", e8)):
+            for nq in bit_equal_q:
+                got = topk.sq8_variant_candidates(exact, scal2, q_all[:nq], qn_all[:nq],
+                                                  variant, tile)
+                torch.cuda.synchronize()
+                want = topk.sq8_variant_candidates_plain(exact, scal2, q_all[:nq],
+                                                         qn_all[:nq], variant, tile)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"sq8_variant {variant} at N={rows_n} Q={nq} equals the plain "
+                      "version bit for bit")
+                del got, want
+            del exact
+        del e8, scal2, q_all
+    accumulation = accumulation_check(topk, gen)
     rows16 = unit_rows(n, gen).to(torch.bfloat16)
     u8, uscal2 = quantize_rows_device(rows16)
     q = unit_rows(Q, gen)
     qn = torch.linalg.norm(q, dim=1)
-    bit_equal_q = (Q,) + QUERY_BUCKETS
+    q_128 = unit_rows(max(QUERY_BUCKETS), gen)
+    qn_128 = torch.linalg.norm(q_128, dim=1)
     out_rows = {}
-    for variant, exact, unit in (("bf16_struct", e8.to(torch.bfloat16), rows16),
-                                 ("int8_noscale", e8, u8)):
-        for nq in bit_equal_q:
-            got = topk.sq8_variant_candidates(exact, scal2, q_all[:nq], qn_all[:nq],
-                                              variant, tile)
-            torch.cuda.synchronize()
-            want = topk.sq8_variant_candidates_plain(exact, scal2, q_all[:nq],
-                                                     qn_all[:nq], variant, tile)
-            check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"sq8_variant {variant} at Q={nq} equals the plain version bit for bit")
-            del got, want
+    for variant, unit in (("bf16_struct", rows16), ("int8_noscale", u8)):
         cand = lambda: topk.sq8_variant_candidates(unit, uscal2, q, qn, variant, tile)
         out = cand()
         ref = topk.sq8_variant_candidates_plain(unit, uscal2, q, qn, variant, tile)
+        # int8_noscale's figures are raw dots in int8 units (up to ~300
+        # here): SCORE_ATOL holds relative to the largest figure
         err = max(float((a - b).abs().max()) for a, b in zip(out, ref)
                   if a.dtype == torch.float32)
-        check(err <= SCORE_ATOL, f"sq8_variant {variant} figures within {SCORE_ATOL} "
-              f"of the plain version on unit rows ({err})")
+        top = max(1.0, float(ref[0].abs().max()))
+        check(err <= SCORE_ATOL * top, f"sq8_variant {variant} figures within "
+              f"{SCORE_ATOL} x {top} of the plain version on unit rows ({err})")
         del ref
         nbytes = n * D * unit.element_size() + Q * D * 4
         nbytes += (8 * n + Q * 4) if variant == "bf16_struct" else 0
@@ -373,10 +408,13 @@ def sq8_variant_checks(topk) -> dict:
             "phase": "kernel_check", "kernel": "sq8_variant", "variant": variant,
             "dtype": str(unit.dtype).replace("torch.", ""), "n": n, "d": D, "q": Q,
             "k": 48, "tile_rows": tile, "bit_equal_plain_at_q": list(bit_equal_q),
-            "max_abs_err": err,
+            "bit_equal_plain_at_n": [n, N_SQ8_TAIL], "max_abs_err": err,
+            **(accumulation if variant == "int8_noscale" else {}),
             "ms": time_ms(cand),
             "ms_q1": time_ms(lambda: topk.sq8_variant_candidates(
                 unit, uscal2, q[:1], qn[:1], variant, tile)),
+            "ms_q128": time_ms(lambda: topk.sq8_variant_candidates(
+                unit, uscal2, q_128, qn_128, variant, tile)),
             "plain_ms": time_ms(lambda: topk.sq8_variant_candidates_plain(
                 unit, uscal2, q, qn, variant, tile)),
             "library_ms": time_ms(lambda: library_topk(e_bf, q, 48)),
@@ -385,9 +423,38 @@ def sq8_variant_checks(topk) -> dict:
         emit(row)
         out_rows[variant] = row
         del out, e_bf
-    del e8, scal2, rows16, u8, uscal2
+    del rows16, u8, uscal2
     torch.cuda.empty_cache()
     return out_rows
+
+
+def accumulation_check(topk, gen: torch.Generator) -> dict:
+    """The tensor cores' accumulation against the model the SQ8 certificate
+    relies on (ops/csrc/topk_tc.cuh): int8_noscale's emitted raw dots
+    (cand_s at cand_i) over cancellation-heavy rows (int8 values of
+    alternating sign by column, a one-signed bf16 query whose values span
+    2^14, so partial sums need more than 24 bits) against float64 dots of
+    the same rows. The worst error, in units of d*2^-24*sum|e8*q~|, must be
+    at most 2 (a truncating accumulation's bound)."""
+    n, tile = N_SQ8_TAIL, topk.SQ8_TILE_ROWS
+    sign = (1 - 2 * (torch.arange(D, device="cuda") % 2)).to(torch.int16)
+    e8 = (torch.randint(64, 128, (n, D), generator=gen, device="cuda",
+                        dtype=torch.int16) * sign).to(torch.int8)
+    mag = torch.rand(Q, D, generator=gen, device="cuda") + 0.5
+    q = mag * 2.0 ** -torch.randint(0, 14, (Q, D), generator=gen, device="cuda").float()
+    q = (q / torch.linalg.norm(q, dim=1, keepdim=True)).bfloat16().float()
+    cand_s, cand_i, _ = topk.sq8_variant_candidates(e8, None, q, None, "int8_noscale", tile)
+    worst = 0.0
+    qd = q.double()
+    for j in range(Q):
+        live = cand_i[j] < n  # the partial last tile's padding rows
+        rows = e8[cand_i[j][live].long()].double()
+        p = rows * qd[j]
+        err = (cand_s[j][live].double() - p.sum(1)).abs()
+        worst = max(worst, float((err / (D * 2.0 ** -24 * p.abs().sum(1))).max()))
+    check(worst <= 2, f"tensor-core accumulation error within 2*d*2^-24*sum|p| ({worst})")
+    del e8, cand_s, cand_i
+    return {"accumulation_err_ratio_max": worst, "accumulation_rows": n}
 
 
 def sq8_split_path(topk) -> int:
@@ -835,6 +902,23 @@ def run_main_path(topk, search, work: Path) -> dict:
     return launches
 
 
+def tc_instantiations(build_log: dict) -> dict:
+    """Registers and spill-store bytes of every instantiation of the
+    tensor-core kernel (ops/csrc/topk_tc.cuh), from ptxas's report:
+    "<library>:<row>,<figure>,C<classes>,Q<query cap>" -> [regs, spill]."""
+    out = {}
+    for name, log in build_log.items():
+        for chunk in log["log"].split("Compiling entry function")[1:]:
+            m = re.search(r"tc_kernelI([at])NS0_\d+([A-Za-z]+)ELi(\d+)ELi(\d+)E", chunk)
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            if m and regs and spill:
+                row = {"a": "int8", "t": "bf16"}[m.group(1)]
+                key = f"{name}:{row},{m.group(2)},C{m.group(3)},Q{m.group(4)}"
+                out[key] = [int(regs.group(1)), int(spill.group(1))]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -864,7 +948,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "arch": "sm_90a",
           "libraries": {k: str(v.relative_to(Path.cwd())) if v.is_relative_to(Path.cwd())
                         else str(v) for k, v in libs.items()},
-          "registers_per_thread": regs, "max_spill_store_bytes": spills})
+          "registers_per_thread": regs, "max_spill_store_bytes": spills,
+          "tc_kernel_registers_spill_bytes": tc_instantiations(_build.BUILD_LOG)})
 
     rows = kernel_checks(topk, search)
     rows[("sq8", "int8", 48)] = sq8_checks(topk)

@@ -1,9 +1,8 @@
-// Residue-class selection shared by the tree kernel's f32 path (B1,
-// topk_tree.cu), the SQ8 bound sweep (B3, topk_sq8.cu) and B3's time-split
-// variants (E1, topk_sq8.cu), as the reference's kernels share
-// _tree_reduce_emit (evossearch_tpu/ops/topk_pallas.py:417-517). The tree
-// kernel's bf16 path walks the same rank order on the tensor cores
-// (topk_tree.cu:tree_tc_kernel).
+// Residue-class selection of the tree kernel's f32 path (B1,
+// topk_tree.cu:tree_kernel) on the CUDA cores, as the reference's kernels
+// share _tree_reduce_emit (evossearch_tpu/ops/topk_pallas.py:417-517).
+// The tensor-core kernel of topk_tc.cuh (B1's bf16 path, B3 and E1) walks
+// the same rank order with group_of_rank and the same output layout.
 //
 // The corpus is cut into tiles of tile_rows rows; residue class j of tile
 // t is the rows t*tile_rows + j + 128*g, g < G = tile_rows/128. For every
@@ -12,9 +11,9 @@
 //   cand_s, cand_i: (nq, tiles*256), tile t owning columns
 //                   [t*256, t*256+128) = best, [t*256+128, t*256+256) = 2nd
 //   m3:             (nq, tiles*128), the class's third-best figure
-// The figure is whatever the kernel ranks by: an exact score (B1) or a
-// certified upper bound on it (B3). Rows at or past n rank at -FLT_MAX and
-// keep their row number.
+// The figure is whatever the kernel ranks by: here the exact score; the
+// tensor-core kernel also ranks certified upper bounds on it (B3). Rows at
+// or past n rank at -FLT_MAX and keep their row number.
 //
 // The reference reduces each class with a halving tree whose figure-only
 // merges prefer the left operand on ties. That tree is a balanced merge

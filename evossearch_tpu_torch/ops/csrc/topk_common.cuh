@@ -1,7 +1,7 @@
-// Shared device code of the CUDA-core candidate kernels (topk_block.cu,
-// topk_tree.cu's f32 path and topk_sq8.cu): a per-thread dot product of
-// one corpus row against a register tile of QM queries, a running top-LEV
-// insertion, and a warp merge of those running states.
+// Shared device code of the CUDA-core candidate kernels (topk_block.cu and
+// topk_tree.cu's f32 path): a per-thread dot product of one corpus row
+// against a register tile of QM queries, a running top-LEV insertion, and
+// a warp merge of those running states.
 //
 // Both kernels select per "slot" (a 256-row block, or one residue class of
 // a tile) over a sequence of rows given in a fixed order. A thread keeps,
@@ -25,11 +25,6 @@ constexpr int THREADS = 128;            // threads per block
 constexpr float NEG_FILL = -FLT_MAX;    // score of padded / tail rows
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// Row elements one load_row_vec call widens: 32 bytes of f32, 16 bytes of
-// bf16 or int8.
-template <typename T> struct RowVec { static constexpr int W = 8; };
-template <> struct RowVec<int8_t> { static constexpr int W = 16; };
-
 // Eight consecutive row elements, widened exactly to f32.
 __device__ __forceinline__ void load_row_vec(const float* p, float (&r)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -48,31 +43,14 @@ __device__ __forceinline__ void load_row_vec(const uint16_t* p, float (&r)[8]) {
   r[6] = __uint_as_float(v.w << 16); r[7] = __uint_as_float(v.w & 0xffff0000u);
 }
 
-// Sixteen int8 elements in one 16-byte load; byte b of each 32-bit word is
-// element b (little endian), sign-extended by the arithmetic shift and
-// converted exactly (|x| <= 128).
-__device__ __forceinline__ void load_row_vec(const int8_t* p, float (&r)[16]) {
-  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
-  const int w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int x =
-          static_cast<int>(static_cast<unsigned>(w[i]) << (24 - 8 * b)) >> 24;
-      r[4 * i + b] = __int2float_rn(x);
-    }
-  }
-}
-
 // acc[q] = <row, query q> for the block's QM queries, held in shared
 // memory as qs[k * QM + q] (f32). IEEE f32 FMA on the CUDA cores: no TF32.
-// d must be a multiple of RowVec<T>::W.
+// d must be a multiple of 8.
 template <typename T>
 __device__ __forceinline__ void dot_row(const T* __restrict__ row,
                                         const float* __restrict__ qs, int d,
                                         float (&acc)[QM]) {
-  constexpr int W = RowVec<T>::W;
+  constexpr int W = 8;  // elements per load_row_vec
 #pragma unroll
   for (int q = 0; q < QM; ++q) acc[q] = 0.f;
   for (int k0 = 0; k0 < d; k0 += W) {

@@ -19,7 +19,8 @@ on the dense exact path.
   ones on the CUDA cores.
 ``sq8`` (B3, ``csrc/topk_sq8.cu``): the tree's selection over certified
   upper bounds ``<e8, bf16(q)> * scale + ||q|| * radd`` of an int8 corpus
-  (the SQ8 capacity tier, ``index/sq8.py``).
+  (the SQ8 capacity tier, ``index/sq8.py``), on the tensor cores with
+  B1's bf16 kernel (``csrc/topk_tc.cuh``), int8 widened exactly to bf16.
 ``sq8_variant`` (E1, ``csrc/topk_sq8.cu``): B3 with one piece taken out,
   to split its time (``scripts/exp_sq8_perf.py``): ``bf16_struct`` (B3's
   bound over a bf16 corpus) and ``int8_noscale`` (the raw int8 dot). No
@@ -393,12 +394,12 @@ def _check_sq8(corpus: torch.Tensor, dtype, scal2, queries: torch.Tensor,
         raise ValueError(f"qnorm must hold {nq} norms")
     if tile_rows < 512 or tile_rows & (tile_rows - 1):
         raise ValueError(f"tile_rows={tile_rows} must be a power of two >= 512")
+    # the kernel's grid holds tiles * (128 / C) blocks in its x dimension,
+    # so any int32 row count
     if n >= 1 << 31:
         raise ValueError("corpus rows must fit int32")
     if corpus.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {corpus.device}")
-    if corpus.device.type == "cuda" and -(-n // tile_rows) * 4 > 65535:
-        raise ValueError(f"corpus of {n} rows exceeds the SQ8 kernel's grid")
 
 
 def _sq8_launch(name: str, corpus: torch.Tensor, scal2, queries: torch.Tensor,

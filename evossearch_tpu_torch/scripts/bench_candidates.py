@@ -1,0 +1,91 @@
+"""Times the tensor-core candidate kernels at the query counts a caller
+gives them: Q = 1 (a single search), 48 and 128.
+
+    python -m evossearch_tpu_torch.scripts.bench_candidates
+
+  tree          B1 over 1,048,576 bf16 rows at the bf16 tile (16384 rows)
+  sq8           B3 over 2,097,152 int8 rows at the SQ8 tile (32768 rows)
+  bf16_struct   E1: B3's bound over the same rows as bf16
+  int8_noscale  E1: the int8 rows ranked by their raw dot
+
+Rows are seeded unit rows of d = 512 made on the card; the int8 rows and
+their scalars are quantized from the bf16 rows with the tier's own
+``quantize_rows_device`` (``exp_sq8_perf.make_corpus``). Times are
+CUDA-event medians of 20 launches. It imports ``evossearch_tpu_torch`` by
+absolute name and only names that every checkout since the tensor-core B1
+has, so run as a file with ``PYTHONPATH`` set to another checkout's root
+it times that checkout's kernels: two trees compare in one call as
+``PYTHONPATH=<root> python <this file>`` for each root in turn. Prints the
+card's name and power limit, then one JSON object per kernel. Needs a
+CUDA device and raises without one.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+
+import torch
+
+from evossearch_tpu_torch.ops import topk
+from evossearch_tpu_torch.scripts.exp_sq8_perf import make_corpus
+
+N_TREE, N_SQ8, D = 1 << 20, 1 << 21, 512
+QUERIES = (1, 48, 128)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def run(seed: int = 0) -> list[dict]:
+    """One row of times (ms) per kernel."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_candidates needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(max(QUERIES), D, generator=gen, device="cuda")
+    q /= torch.linalg.norm(q, dim=1, keepdim=True)
+    qn = torch.linalg.norm(q, dim=1)
+    emb16, e8, scal2 = make_corpus(N_SQ8, gen)
+    tile = topk.SQ8_TILE_ROWS
+    calls = {
+        ("tree", "bf16", N_TREE, 16384): lambda nq: topk.tree_candidates(
+            emb16[:N_TREE], q[:nq], 16384),
+        ("sq8", "int8", N_SQ8, tile): lambda nq: topk.sq8_candidates(
+            e8, scal2, q[:nq], qn[:nq], tile),
+        ("bf16_struct", "bf16", N_SQ8, tile): lambda nq: topk.sq8_variant_candidates(
+            emb16, scal2, q[:nq], qn[:nq], "bf16_struct", tile),
+        ("int8_noscale", "int8", N_SQ8, tile): lambda nq: topk.sq8_variant_candidates(
+            e8, None, q[:nq], None, "int8_noscale", tile),
+    }
+    return [{"kernel": name, "dtype": dtype, "n": n, "d": D, "tile_rows": t,
+             **{f"ms_q{nq}": time_ms(lambda: fn(nq)) for nq in QUERIES}}
+            for (name, dtype, n, t), fn in calls.items()]
+
+
+def main() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    for row in run():
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

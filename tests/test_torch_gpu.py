@@ -110,6 +110,11 @@ def test_matmul_f32_bf16_gemm_equals_widened_product():
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+# (queries, tile rows) of the SQ8 kernels' cases: 45 a partial 8-query
+# tile, the serving buckets and Q = 48 at the serving tile
+SQ8_CASES = ((45, 512),) + tuple((nq, topk.SQ8_TILE_ROWS) for nq in (1, 8, 45, 48, 64, 128))
+
+
 @pytest.mark.gpu
 def test_sq8_kernel_equals_plain():
     _need_gpu()
@@ -120,12 +125,12 @@ def test_sq8_kernel_equals_plain():
         (2.0 ** -rng.integers(5, 10, n)).astype(np.float32),
         (rng.random(n) * 1e-2).astype(np.float32),
     ])).cuda()
-    _, q = _exact_inputs(56, 1, d, 45)
+    _, q = _exact_inputs(56, 1, d, 128)
     q = q.cuda()
     qn = torch.linalg.norm(q, dim=1)
-    # 45 and 1 queries: partial 16-query chunks; tiles of 512 and the
-    # serving tile
-    for nq, tile in ((45, 512), (1, topk.SQ8_TILE_ROWS), (45, topk.SQ8_TILE_ROWS)):
+    # tiles of 512 and the serving tile; 70,001 rows leave a partial last
+    # tile and n % 4 != 0, so radd = scal2[1] starts off 16-byte alignment
+    for nq, tile in SQ8_CASES:
         before = topk.LAUNCHES["sq8"]
         got = topk.sq8_candidates(e8, scal2, q[:nq], qn[:nq], tile)
         assert topk.LAUNCHES["sq8"] == before + 1
@@ -145,10 +150,10 @@ def test_sq8_variant_kernels_equal_plain(variant):
         (2.0 ** -rng.integers(5, 10, n)).astype(np.float32),
         (rng.random(n) * 1e-2).astype(np.float32),
     ])).cuda()
-    _, q = _exact_inputs(61, 1, d, 45)
+    _, q = _exact_inputs(61, 1, d, 128)
     q = q.cuda()
     qn = torch.linalg.norm(q, dim=1)
-    for nq, tile in ((45, 512), (1, topk.SQ8_TILE_ROWS), (45, topk.SQ8_TILE_ROWS)):
+    for nq, tile in SQ8_CASES:
         before = topk.LAUNCHES["sq8_variant"]
         got = topk.sq8_variant_candidates(corpus, scal2, q[:nq], qn[:nq], variant, tile)
         assert topk.LAUNCHES["sq8_variant"] == before + 1

@@ -4,8 +4,10 @@
 
 Builds the top-k kernels from evossearch_tpu_torch/ops/csrc with nvcc
 (one nvcc per source, in parallel), holds each against its plain PyTorch
-version and a dense oracle, times them, then drives four paths, each with
-the launch counts set to 0 just before it and read just after:
+version and a dense oracle, times them, then drives four paths, each
+with the launch counts set to 0 just before it and read just after (and
+last checks the block kernel past the 67,106,816 rows its grid once
+capped it at: 67,110,913 rows of d = 128, f32 and bf16):
 
   * the SQ8 time split (``evossearch_tpu_torch.scripts.exp_sq8_perf``):
     B1, B3 and B3's two E1 variants (``sq8_variant``) over 1,048,576 and
@@ -56,6 +58,11 @@ D = 512          # ViT-B/32 embedding width
 Q = 48           # query batch of the kernel checks (the MAX_RESULTS batch)
 QUERY_BUCKETS = (1, 8, 64, 128)  # query rows the serving path pads a batch to
 N_BLOCK = 1 << 18   # smallest store the kernels serve: the block kernel at k=48
+N_BLOCK_TAIL = 300_007  # a partial last 2048-row tile of the block kernel
+# past the 67,106,816 rows (cdiv(n, 2048) * 2 blocks in a grid's y) at which
+# the block kernel once failed to launch; the last tile is partial
+N_BLOCK_GRID = 67_110_913
+D_BLOCK_GRID = 128  # the narrowest width, so both dtypes fit on the card
 N_TREE = 1 << 20    # the tree kernel at k=12 and k=48
 N_SQ8 = 1 << 21     # the over-budget folder, and the SQ8 kernel checks
 N_SQ8_TAIL = 1_000_003  # a partial last SQ8 tile, n % 4 != 0 (radd unaligned)
@@ -191,6 +198,7 @@ def kernel_checks(topk, search) -> dict:
                       f"{name} {dname} candidates at Q={nq} equal the plain "
                       "version bit for bit")
                 del got, want
+            extra = block_bit_equality(topk, emb, dtype) if name == "block" else {}
             qb = topk.prepare_queries(q, emb)
             o_s, o_i = topk.stable_topk(topk.dense_scores(emb, qb), k)
             ok, s, i = fused(emb, q, k)
@@ -227,7 +235,7 @@ def kernel_checks(topk, search) -> dict:
             row = {
                 "phase": "kernel_check", "kernel": name, "dtype": dname,
                 "n": n, "d": D, "q": Q, "k": k,
-                "bit_equal_plain_at_q": list(bit_equal_q), "max_abs_err": err,
+                "bit_equal_plain_at_q": list(bit_equal_q), **extra, "max_abs_err": err,
                 "cert_rate_exact_inputs": exact_cert,
                 "cert_rate_unit_rows": float(okn.mean()),
                 "ms": time_ms(lambda: cand(emb, q)),
@@ -242,6 +250,61 @@ def kernel_checks(topk, search) -> dict:
             rows[(name, dname, k)] = row
             del emb, q, q_128, q_all, out
             torch.cuda.empty_cache()
+    return rows
+
+
+def block_bit_equality(topk, emb: torch.Tensor, dtype) -> dict:
+    """The block kernel at the depth the N_BLOCK case does not take
+    (levels 3) on its exact-dot rows, and at N_BLOCK_TAIL rows (a partial
+    last tile), each bit for bit at Q and every query bucket. Its own
+    generator leaves kernel_checks' inputs as they were without it."""
+    bit_equal_q = (Q,) + QUERY_BUCKETS
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tail, q_all = exact_inputs(N_BLOCK_TAIL, dtype, gen)
+    for rows, levels in ((emb, 3), (tail, topk.default_levels(N_BLOCK_TAIL))):
+        for nq in bit_equal_q:
+            got = topk.block_candidates(rows, q_all[:nq], levels)
+            torch.cuda.synchronize()
+            want = topk.block_candidates_plain(rows, q_all[:nq], levels)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"block candidates at N={rows.shape[0]} levels={levels} Q={nq} "
+                  "equal the plain version bit for bit")
+    del tail, got, want
+    return {"bit_equal_plain_at_levels": [topk.default_levels(N_BLOCK), 3],
+            "bit_equal_plain_at_n": [N_BLOCK, N_BLOCK_TAIL]}
+
+
+def block_grid_check(topk) -> list[dict]:
+    """The block kernel past its old grid cap: N_BLOCK_GRID exact-dot rows
+    of width D_BLOCK_GRID, f32 (34 GB) and then bf16, 8 queries, bit for
+    bit against the plain version; each corpus is filled in chunks (one
+    integer draw over the whole shape would need 68 GB of int64) and freed
+    before the next."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, d, chunk = N_BLOCK_GRID, D_BLOCK_GRID, 1 << 20
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        emb = torch.empty((n, d), dtype=dtype, device="cuda")
+        for s in range(0, n, chunk):
+            m = min(chunk, n - s)
+            emb[s : s + m] = torch.randint(-4, 5, (m, d), generator=gen, device="cuda",
+                                           dtype=torch.int8).to(dtype) / 16
+        q = torch.randint(-4, 5, (8, d), generator=gen, device="cuda").float() / 16
+        got = topk.block_candidates(emb, q, 4)
+        torch.cuda.synchronize()
+        want = topk.block_candidates_plain(emb, q, 4)
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"block {dname} candidates at N={n} d={d} equal the plain version bit for bit")
+        del got, want
+        row = {"phase": "block_past_old_grid_cap", "dtype": dname, "n": n, "d": d,
+               "q": 8, "levels": 4, "blocks": -(-n // topk.TILE_ROWS) * 8,
+               "bit_equal_plain": True,
+               "ms": time_ms(lambda: topk.block_candidates(emb, q, 4), reps=5)}
+        emit(row)
+        rows.append(row)
+        del emb
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -904,18 +967,27 @@ def run_main_path(topk, search, work: Path) -> dict:
 
 def tc_instantiations(build_log: dict) -> dict:
     """Registers and spill-store bytes of every instantiation of the
-    tensor-core kernel (ops/csrc/topk_tc.cuh), from ptxas's report:
-    "<library>:<row>,<figure>,C<classes>,Q<query cap>" -> [regs, spill]."""
+    tensor-core kernels on ops/csrc/topk_tc.cuh's phases, from ptxas's
+    report: "<library>:<row>,<figure>,C<classes>,Q<query cap>" for the
+    residue-class kernel, "<library>:bf16,levels<LEV>,Q<query cap>" for
+    B2's -> [regs, spill]."""
     out = {}
     for name, log in build_log.items():
         for chunk in log["log"].split("Compiling entry function")[1:]:
             m = re.search(r"tc_kernelI([at])NS0_\d+([A-Za-z]+)ELi(\d+)ELi(\d+)E", chunk)
+            b = re.search(r"block_tc_kernelILi(\d+)ELi(\d+)E", chunk)
             regs = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
-            if m and regs and spill:
+            if not (regs and spill):
+                continue
+            if b:
+                key = f"{name}:bf16,levels{b.group(1)},Q{b.group(2)}"
+            elif m:
                 row = {"a": "int8", "t": "bf16"}[m.group(1)]
                 key = f"{name}:{row},{m.group(2)},C{m.group(3)},Q{m.group(4)}"
-                out[key] = [int(regs.group(1)), int(spill.group(1))]
+            else:
+                continue
+            out[key] = [int(regs.group(1)), int(spill.group(1))]
     return out
 
 
@@ -959,6 +1031,8 @@ def main() -> int:
     variant_launches = sq8_split_path(topk)
     launches = main_path(topk, search)
     launches["sq8_variant"] = variant_launches
+    # last, so the 51 GB it allocates and frees precede no timing
+    block_grid_check(topk)
 
     kernels = []
     for name, dname in (("tree", "bf16"), ("block", "bf16"), ("sq8", "int8"),

@@ -12,44 +12,62 @@
 // L = cdiv(n, 2048) * 8 blocks cell for cell:
 //   out_s: (LEV, L, nq) f32    out_i: (LEV-1, L, nq) i32
 //
-// Design: one warp per (256-row block, chunk of QM=16 queries); each lane
-// walks 8 consecutive rows in ascending order, scoring each row against
-// its 16 queries (f32 FMA, bf16 rows widened exactly) and keeping a running
-// top-LEV per query; the 32 lane states then merge left to right (earlier
-// rows win ties), which is exactly the block's top-LEV.
+// Two designs, one per corpus dtype.
 //
-// What bounds it on an H100: the scores are 2*Q*N*d f32 FMAs on the CUDA
-// cores (67 TFLOP/s peak) against N*d*itemsize corpus bytes (3.35 TB/s);
-// at Q = 48, d = 512 that is operations for f32 and, were the product on
-// the tensor cores, bytes for bf16.
-// Its times on the card beside the bound: PERF.md (from chip_smoke.py).
-// What this simple design leaves on the table: no tensor cores (wgmma), no
-// TMA or cp.async staging of rows through shared memory (each lane reads
-// its own row with 16-byte loads, half of each 32-byte sector per load),
-// queries beyond a multiple of 16 are computed and dropped, and the corpus
-// is read once per 16-query chunk (adjacent blocks share it through L2).
+// bf16 corpus (block_tc_kernel): the copy, query and MMA phases of the
+// tensor-core kernel in topk_tc.cuh, on a walk of its own. One CUDA block
+// per 2048-row tile (8 of B2's blocks) serves every query of the launch
+// (the corpus is read once; only at a d so wide that 128 queries and two
+// ring slots do not fit are the queries cut into chunks). Rank r of the
+// walk is rows r*R .. r*R+R-1 (R = C/8) of each of the tile's 8 blocks,
+// block w as ring group w: one bulk copy per group, so slab column w*R + i
+// is block w's row r*R + i. The 256/R ranks go in ascending order, and
+// thread (warp w, lane) inserts block w's R dots of each of its queries
+// (lane + 32*j) into a running top-LEV with strict ">", so each block's
+// rows arrive in ascending order and an equal score that came earlier
+// stays ahead: the reference's lowest index among equal scores, with no
+// merge. bf16 x bf16 products are exact in f32, so exact-dot inputs give
+// the plain version's scores bit for bit. Bound by its bytes on an H100:
+// N*d*2 read once at 3.35 TB/s against 2*Q*N*d products on the tensor
+// cores (989 TFLOP/s).
+//
+// f32 corpus (block_kernel): the tensor cores would round f32 inputs to
+// TF32, so f32 keeps IEEE f32 FMAs on the CUDA cores. One warp per
+// (256-row block, chunk of QM=16 queries), all in grid x; each lane walks
+// 8 consecutive rows in ascending order, scoring each row against its 16
+// queries (f32 FMA) and keeping a running top-LEV per query; the 32 lane
+// states then merge left to right (earlier rows win ties), which is
+// exactly the block's top-LEV. Bound on an H100
+// by its 2*Q*N*d FMAs on the CUDA cores (67 TFLOP/s); the corpus is read
+// once per 16-query chunk, each lane with its own 16-byte loads, no
+// shared-memory staging.
+// Times on the card beside the bounds: PERF.md (from chip_smoke.py).
 
-#include "topk_common.cuh"
+#include "topk_tc.cuh"
 
 namespace {
 
 constexpr int SUB_ROWS = 256;
+
+// ---- f32: CUDA cores -------------------------------------------------------
+
 constexpr int SEG = 32;                              // lanes per block
 constexpr int ROWS_PER_LANE = SUB_ROWS / SEG;        // 8
 constexpr int SLOTS_PER_BLOCK = evs::THREADS / SEG;  // 4 row blocks
 
-template <typename T, int LEV>
+template <int LEV>
 __global__ void __launch_bounds__(evs::THREADS)
-block_kernel(const T* __restrict__ emb, const float* __restrict__ q_in,
+block_kernel(const float* __restrict__ emb, const float* __restrict__ q_in,
              int nq, int n, int d, int L, float* __restrict__ out_s,
              int* __restrict__ out_i) {
   extern __shared__ float qs[];
-  const int q0 = blockIdx.x * evs::QM;
+  const int chunks = (nq + evs::QM - 1) / evs::QM;
+  const int q0 = blockIdx.x % chunks * evs::QM;
   evs::load_queries(q_in, nq, d, q0, qs);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y * SLOTS_PER_BLOCK + warp;  // warp-uniform
+  const int b = blockIdx.x / chunks * SLOTS_PER_BLOCK + warp;  // warp-uniform
 
   float s[evs::QM][LEV];
   int ix[evs::QM][LEV];
@@ -57,7 +75,7 @@ block_kernel(const T* __restrict__ emb, const float* __restrict__ q_in,
   if (b < L) {
     const int r0 = b * SUB_ROWS + lane * ROWS_PER_LANE;
     for (int t = 0; t < ROWS_PER_LANE; ++t) {
-      evs::visit_row<T, LEV>(emb, n, d, qs, r0 + t, s, ix);
+      evs::visit_row<LEV>(emb, n, d, qs, r0 + t, s, ix);
     }
   }
   evs::merge_segments<LEV, SEG>(s, ix);
@@ -82,35 +100,217 @@ block_kernel(const T* __restrict__ emb, const float* __restrict__ q_in,
   }
 }
 
-template <typename T, int LEV>
-int launch(const void* emb, const float* q, int nq, int n, int d, int L,
-           float* out_s, int* out_i, cudaStream_t stream) {
+template <int LEV>
+int launch_f32(const float* emb, const float* q, int nq, int n, int d, int L,
+               float* out_s, int* out_i, cudaStream_t stream) {
   const int smem = evs::QM * d * (int)sizeof(float);
-  const int err = evs::set_smem((const void*)block_kernel<T, LEV>, smem);
+  const int err = evs::set_smem((const void*)block_kernel<LEV>, smem);
   if (err) return err;
-  dim3 grid((nq + evs::QM - 1) / evs::QM,
-            (L + SLOTS_PER_BLOCK - 1) / SLOTS_PER_BLOCK);
-  block_kernel<T, LEV><<<grid, evs::THREADS, smem, stream>>>(
-      static_cast<const T*>(emb), q, nq, n, d, L, out_s, out_i);
+  // blocks and query chunks both in grid x (no cap below int32 rows), the
+  // chunks fastest: the chunks of one row range run side by side and
+  // share its rows through L2 (with the chunks in grid y, f32 ran markedly
+  // slower on an H100; PERF.md)
+  const int grid = (L + SLOTS_PER_BLOCK - 1) / SLOTS_PER_BLOCK * ((nq + evs::QM - 1) / evs::QM);
+  block_kernel<LEV><<<grid, evs::THREADS, smem, stream>>>(emb, q, nq, n, d, L,
+                                                          out_s, out_i);
   return (int)cudaGetLastError();
+}
+
+// ---- bf16: tensor cores ----------------------------------------------------
+
+namespace tc = evs::tc;
+
+constexpr int TILE_ROWS = 2048;                      // rows per CUDA block
+constexpr int BLOCKS_PER_TILE = TILE_ROWS / SUB_ROWS;
+constexpr int C = 32;                                // rows per rank
+constexpr int R = C / 8;                             // of each block
+constexpr int RANKS = SUB_ROWS / R;
+static_assert(BLOCKS_PER_TILE == tc::WARPS, "one selection warp per 256-row block");
+
+// Block (tile, query chunk). Copies and MMA as tc_kernel (topk_tc.cuh);
+// selection: thread (warp w, lane) keeps the top-LEV of B2 block w of the
+// tile for the queries lane + 32*j in registers.
+template <int LEV, int QCAP>
+__global__ void __launch_bounds__(tc::Shape<C, QCAP>::BLOCK, 1)
+block_tc_kernel(const uint16_t* __restrict__ emb_in, const float* __restrict__ q_in,
+                int nq, int n, int d, int L, float* __restrict__ out_s,
+                int* __restrict__ out_i, int qc, int slots) {
+  using Sh = tc::Shape<C, QCAP>;
+  constexpr int QPT = (QCAP + 31) / 32, LD = Sh::LD, EB = 2;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[tc::MAX_SLOTS];
+  const unsigned char* __restrict__ emb = reinterpret_cast<const unsigned char*>(emb_in);
+  const int gp = tc::group_pitch<uint16_t>(C, d);
+  const int slot_bytes = 8 * gp;
+  uint16_t* qsm = reinterpret_cast<uint16_t*>(smem);
+  unsigned char* ring = smem + (size_t)qc * d * 2;
+  float* slab = reinterpret_cast<float*>(ring + (size_t)slots * slot_bytes);
+
+  // the thread index, read once and kept in a register (see tc_kernel)
+  int tid;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long tile_base = (long long)blockIdx.x * TILE_ROWS;
+  const int q0 = blockIdx.y * qc;
+  const int nql = min(qc, nq - q0);              // this block's queries
+  const int nt = (nql + 7) >> 3;                 // their 8-query tiles
+
+  // rank r: rows r*R.. of each block, block w's as ring group w; copier
+  // thread 0 counts the live rows of all 8 groups (fewer in the last tile)
+  const bool copier = Sh::COPY_WARP ? warp == tc::WARPS : true;
+  const int cw = Sh::COPY_WARP ? lane : (lane == 0 ? warp : 8);
+  const bool copy_only = Sh::COPY_WARP && warp == tc::WARPS;
+  auto issue = [&](int r) {
+    const long long row0 = tile_base + r * R;
+    int rows = 0;
+    if (cw == 0) {
+#pragma unroll
+      for (int w = 0; w < BLOCKS_PER_TILE; ++w) {
+        rows += (int)max(0LL, min((long long)R, (long long)n - (row0 + w * SUB_ROWS)));
+      }
+    }
+    tc::issue_rank<EB, R, SUB_ROWS>(emb, row0, rows, n, d, cw,
+                                    tc::smem_u32(ring + (size_t)(r % slots) * slot_bytes),
+                                    gp, tc::smem_u32(&full[r % slots]));
+  };
+
+  if (tid < slots) tc::mbar_init(&full[tid]);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  if (copier) {
+    for (int r = 0; r < slots - 1; ++r) issue(r);
+  }
+  tc::stage_queries<EB, Sh::BLOCK>(qsm, q_in, q0, nql, nt, d, tid);
+
+  const tc::MmaRole mr = tc::mma_role<Sh::NPW, EB>(warp, lane, nt, d, gp, copy_only);
+  const int splits = mr.splits, nt0 = mr.nt0, my_nt = mr.my_nt, split = mr.split;
+  const int kc0 = mr.kc0, steps = mr.steps, a_off = mr.a_off;
+  const uint32_t q_base = tc::smem_u32(qsm);
+  const long long block_base = tile_base + (long long)warp * SUB_ROWS;
+  const int col = warp * R;                      // block w's slab columns
+
+  float s[QPT][LEV];
+  int ix[QPT][LEV];                              // rows within the block
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {
+#pragma unroll
+    for (int l = 0; l < LEV; ++l) {
+      s[j][l] = -INFINITY;
+      ix[j][l] = 0;
+    }
+  }
+
+  for (int r = 0; r < RANKS; ++r) {
+    tc::mbar_wait(tc::smem_u32(&full[r % slots]), (r / slots) & 1);
+    __syncthreads();  // rank r landed; rank r-1's slot and the slab are free
+    if (copier && r + slots - 1 < RANKS) issue(r + slots - 1);
+    if (my_nt > 0) {
+      tc::mma_rank<uint16_t, C, QCAP>(
+          tc::smem_u32(ring + (size_t)(r % slots) * slot_bytes) + a_off, q_base, slab, d,
+          nt, lane, nt0, my_nt, split, kc0, steps);
+    }
+    __syncthreads();  // the slab of rank r is complete
+    if (copy_only) continue;
+    // every slab load in flight together (queries past the block's are
+    // clamped, their states never written out); the 32 lanes read 32 slab
+    // rows at one column, one bank each; k-splits add in split order
+    float v[QPT][R];
+#pragma unroll
+    for (int j = 0; j < QPT; ++j) {
+      const float* row = slab + min(lane + 32 * j, nt * 8 - 1) * LD + col;
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[j][i] = row[i];
+    }
+#pragma unroll 1
+    for (int p = 1; p < splits; ++p) {
+      const float* part = slab + p * nt * 8 * LD + col;
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) {
+        const float* row = part + min(lane + 32 * j, nt * 8 - 1) * LD;
+#pragma unroll
+        for (int i = 0; i < R; ++i) v[j][i] += row[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const bool live = block_base + r * R + i < n;
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) {
+        evs::insert<LEV>(s[j], ix[j], live ? v[j][i] : evs::NEG_FILL, r * R + i);
+      }
+    }
+  }
+  if (copy_only) return;
+
+  // lane-contiguous queries: each level's stores are coalesced
+  const int b = blockIdx.x * BLOCKS_PER_TILE + warp;
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {
+    const int qq = lane + 32 * j;
+    if (qq < nql) {
+      const size_t q = (size_t)(q0 + qq);
+#pragma unroll
+      for (int lvl = 0; lvl < LEV; ++lvl) out_s[((size_t)lvl * L + b) * nq + q] = s[j][lvl];
+#pragma unroll
+      for (int lvl = 0; lvl < LEV - 1; ++lvl) {
+        // a level past the block's real rows names the block's first row
+        out_i[((size_t)lvl * L + b) * nq + q] =
+            b * SUB_ROWS + (s[j][lvl] == evs::NEG_FILL ? 0 : ix[j][lvl]);
+      }
+    }
+  }
+}
+
+template <int LEV, int QCAP>
+int launch_tc_shape(const void* emb, const float* q, int nq, int n, int d, int L,
+                    float* out_s, int* out_i, int qc, int smem_max, cudaStream_t stream) {
+  const int slots = tc::ring_slots<uint16_t, C, QCAP>(qc, d, false, smem_max);
+  const int smem = (int)tc::smem_bytes<uint16_t, C, QCAP>(slots, qc, d, false);
+  const int err = evs::set_smem((const void*)block_tc_kernel<LEV, QCAP>, smem);
+  if (err) return err;
+  const dim3 grid(L / BLOCKS_PER_TILE, (nq + qc - 1) / qc);
+  block_tc_kernel<LEV, QCAP><<<grid, tc::Shape<C, QCAP>::BLOCK, smem, stream>>>(
+      static_cast<const uint16_t*>(emb), q, nq, n, d, L, out_s, out_i, qc, slots);
+  return (int)cudaGetLastError();
+}
+
+// Needs d % 64 == 0 and 1 <= nq <= 128, L = cdiv(n, 2048) * 8.
+template <int LEV>
+int launch_tc(const void* emb, const float* q, int nq, int n, int d, int L,
+              float* out_s, int* out_i, cudaStream_t stream) {
+  if (d % 64 || nq < 1 || nq > tc::MAX_QUERIES || L % BLOCKS_PER_TILE) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int smem_max = 0;
+  const int err = tc::smem_limit(smem_max);
+  if (err) return err;
+  const int qc = tc::query_chunk<uint16_t, C>(nq, d, false, smem_max);
+  if (!qc) return (int)cudaErrorInvalidValue;
+  if (qc <= 8) return launch_tc_shape<LEV, 8>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
+  if (qc <= 64) return launch_tc_shape<LEV, 64>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
+  return launch_tc_shape<LEV, tc::MAX_QUERIES>(emb, q, nq, n, d, L, out_s, out_i, qc,
+                                               smem_max, stream);
+}
+
+template <int LEV>
+int launch(const void* emb, int is_bf16, const float* q, int nq, int n, int d,
+           int L, float* out_s, int* out_i, cudaStream_t stream) {
+  return is_bf16 ? launch_tc<LEV>(emb, q, nq, n, d, L, out_s, out_i, stream)
+                 : launch_f32<LEV>(static_cast<const float*>(emb), q, nq, n, d, L,
+                                   out_s, out_i, stream);
 }
 
 }  // namespace
 
-// emb: (n, d) row-major, f32 (is_bf16 = 0) or bf16 bits (is_bf16 = 1);
-// q: (nq, d) f32, already rounded to bf16 for a bf16 corpus. Returns the
-// CUDA error code of the launch (0 = launched).
+// emb: (n, d) row-major, f32 (is_bf16 = 0) or bf16 bits (is_bf16 = 1),
+// 16-byte aligned; q: (nq, d) f32, already rounded to bf16 for a bf16
+// corpus. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int evs_topk_block(const void* emb, int is_bf16, const float* q,
                               int nq, int n, int d, int levels, int L,
                               float* out_s, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (levels == 3) {
-    return is_bf16 ? launch<uint16_t, 3>(emb, q, nq, n, d, L, out_s, out_i, st)
-                   : launch<float, 3>(emb, q, nq, n, d, L, out_s, out_i, st);
-  }
-  if (levels == 4) {
-    return is_bf16 ? launch<uint16_t, 4>(emb, q, nq, n, d, L, out_s, out_i, st)
-                   : launch<float, 4>(emb, q, nq, n, d, L, out_s, out_i, st);
-  }
+  if (levels == 3) return launch<3>(emb, is_bf16, q, nq, n, d, L, out_s, out_i, st);
+  if (levels == 4) return launch<4>(emb, is_bf16, q, nq, n, d, L, out_s, out_i, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
-// Shared device code of the CUDA-core candidate kernels (topk_block.cu and
-// topk_tree.cu's f32 path): a per-thread dot product of one corpus row
-// against a register tile of QM queries, a running top-LEV insertion, and
-// a warp merge of those running states.
+// Shared device code of the CUDA-core candidate kernels (the f32 paths of
+// topk_block.cu and topk_tree.cu): a per-thread dot product of one corpus
+// row against a register tile of QM queries, a running top-LEV insertion
+// (also B2's tensor-core selection), and a warp merge of those running
+// states.
 //
 // Both kernels select per "slot" (a 256-row block, or one residue class of
 // a tile) over a sequence of rows given in a fixed order. A thread keeps,
@@ -25,7 +26,7 @@ constexpr int THREADS = 128;            // threads per block
 constexpr float NEG_FILL = -FLT_MAX;    // score of padded / tail rows
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// Eight consecutive row elements, widened exactly to f32.
+// Eight consecutive row elements.
 __device__ __forceinline__ void load_row_vec(const float* p, float (&r)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
@@ -33,21 +34,10 @@ __device__ __forceinline__ void load_row_vec(const float* p, float (&r)[8]) {
   r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
 }
 
-// bf16 -> f32 is a 16-bit shift of the bit pattern; element 0 is the low
-// half of each 32-bit word (little endian).
-__device__ __forceinline__ void load_row_vec(const uint16_t* p, float (&r)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  r[0] = __uint_as_float(v.x << 16); r[1] = __uint_as_float(v.x & 0xffff0000u);
-  r[2] = __uint_as_float(v.y << 16); r[3] = __uint_as_float(v.y & 0xffff0000u);
-  r[4] = __uint_as_float(v.z << 16); r[5] = __uint_as_float(v.z & 0xffff0000u);
-  r[6] = __uint_as_float(v.w << 16); r[7] = __uint_as_float(v.w & 0xffff0000u);
-}
-
 // acc[q] = <row, query q> for the block's QM queries, held in shared
 // memory as qs[k * QM + q] (f32). IEEE f32 FMA on the CUDA cores: no TF32.
 // d must be a multiple of 8.
-template <typename T>
-__device__ __forceinline__ void dot_row(const T* __restrict__ row,
+__device__ __forceinline__ void dot_row(const float* __restrict__ row,
                                         const float* __restrict__ qs, int d,
                                         float (&acc)[QM]) {
   constexpr int W = 8;  // elements per load_row_vec
@@ -143,14 +133,14 @@ __device__ __forceinline__ void init_state(float (&s)[QM][LEV],
 
 // Score one row (or NEG_FILL past the corpus end) and insert it into
 // every query's list.
-template <typename T, int LEV>
-__device__ __forceinline__ void visit_row(const T* __restrict__ emb, int n,
+template <int LEV>
+__device__ __forceinline__ void visit_row(const float* __restrict__ emb, int n,
                                           int d, const float* qs, int row,
                                           float (&s)[QM][LEV],
                                           int (&ix)[QM][LEV]) {
   float acc[QM];
   if (row < n) {
-    dot_row<T>(emb + (size_t)row * d, qs, d, acc);
+    dot_row(emb + (size_t)row * d, qs, d, acc);
   } else {
 #pragma unroll
     for (int q = 0; q < QM; ++q) acc[q] = NEG_FILL;

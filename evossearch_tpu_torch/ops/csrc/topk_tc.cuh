@@ -1,8 +1,14 @@
-// Tensor-core residue-class candidate kernel, one kernel for four users:
+// Tensor-core candidate kernels. The residue-class kernel serves four users:
 //   B1's bf16 path   (topk_tree.cu)  tc_kernel<uint16_t, RawDot>
 //   B3, the SQ8 sweep (topk_sq8.cu)  tc_kernel<int8_t,   Bound>
 //   E1 bf16_struct    (topk_sq8.cu)  tc_kernel<uint16_t, Bound>
 //   E1 int8_noscale   (topk_sq8.cu)  tc_kernel<int8_t,   RawDot>
+// and B2's bf16 path (topk_block.cu, block_tc_kernel) walks 256-row blocks
+// on the same three phases, held here once for both walks: the bulk copies
+// of a rank's 8 row groups into the ring (issue_rank), the queries staged
+// in shared memory (stage_queries) and the MMA phase into the dot slab
+// (mma_role, mma_rank). Each walk keeps its own rows per rank, selection
+// and epilogue.
 // Row is the corpus element (bf16 bits or int8); Figure is what the
 // selection ranks: the raw dot <row, q~> (q~ = bf16(q)), or the SQ8 bound
 // dot*scale + ||q||*radd. For every (query, tile, residue class) the
@@ -215,24 +221,24 @@ struct Shape {
       NPW * WARPS * 8 > QCAP ? NPW * WARPS * 8 : QCAP;
 };
 
-// A ring slot holds the C rows of one rank as 8 groups of C/8 contiguous
-// rows (one bulk copy each), 16 bytes of pad between groups. An ldmatrix
-// phase reads one row of each group, so its 8 rows fall in 8 different
-// bank groups (C/8*d*|Row| % 128 == 0): the MMA's 16-row tile mt takes
-// rows w = 2*mt (M index 0-7) and 2*mt + 1 (8-15) of every group.
-// Group pitch in bytes.
+// A ring slot holds the C rows of one rank as 8 groups of C/8 rows (one
+// bulk copy each), 16 bytes of pad between groups. An ldmatrix phase
+// reads one row of each group, so its 8 rows fall in 8 different bank
+// groups (C/8*d*|Row| % 128 == 0): the MMA's 16-row tile mt takes rows w =
+// 2*mt (M index 0-7) and 2*mt + 1 (8-15) of every group, and the slab
+// holds row i of group w in column w*C/8 + i. Group pitch in bytes.
 template <typename Row>
 __host__ __device__ inline int group_pitch(int c, int d) {
   return c / 8 * d * (int)sizeof(Row) + 16;
 }
 
 // Shared memory of one block: qc queries (bf16, swizzled), s ring slots,
-// the (SLAB_ROWS, C + 1) f32 dot slab, then qc query norms (Bound only).
-template <typename Row, typename Figure, int C, int QCAP>
-size_t smem_bytes(int s, int qc, int d) {
+// the (SLAB_ROWS, C + 1) f32 dot slab, then qc query norms (if norms).
+template <typename Row, int C, int QCAP>
+size_t smem_bytes(int s, int qc, int d, bool norms) {
   using Sh = Shape<C, QCAP>;
   return (size_t)qc * d * 2 + (size_t)s * 8 * group_pitch<Row>(C, d) +
-         (size_t)Sh::SLAB_ROWS * Sh::LD * 4 + (Figure::NORMS ? (size_t)qc * 4 : 0);
+         (size_t)Sh::SLAB_ROWS * Sh::LD * 4 + (norms ? (size_t)qc * 4 : 0);
 }
 
 // Arguments of one launch. emb: (n, d) Row, 16-byte aligned; scal2: (2, n)
@@ -249,7 +255,204 @@ struct Args {
   float* m3;
 };
 
-// ---- the kernel ------------------------------------------------------------
+// ---- phases shared by the walks --------------------------------------------
+
+// Copies of one rank into the ring slot at shared address ``dst``: group
+// w is the C/8 = R rows from row g0 + w*GSTRIDE (fewer at the corpus end,
+// none past it), one bulk copy by copier thread cw = w into the group's
+// place in the slot. Copier thread 0 posts the bytes of the rank's
+// ``rows`` live rows (all 8 groups) as the barrier's one arrival, so a
+// rank with none completes at once.
+template <int EB, int R, int GSTRIDE>
+__device__ __forceinline__ void issue_rank(const unsigned char* __restrict__ emb,
+                                           long long g0, int rows, int n, int d,
+                                           int cw, uint32_t dst, int gp, uint32_t bar) {
+  if (cw == 0) mbar_expect(bar, rows * d * EB);
+  int mine;  // group cw's live rows
+  if constexpr (GSTRIDE == R) {
+    mine = min(R, rows - cw * R);  // contiguous groups: the rank's first rows
+  } else {
+    mine = (int)max(0LL, min((long long)R, (long long)n - (g0 + cw * GSTRIDE)));
+  }
+  if (cw < 8 && mine > 0) {
+    bulk_copy(dst + cw * gp, emb + (g0 + cw * GSTRIDE) * d * EB, mine * d * EB, bar);
+  }
+}
+
+// The block's nql queries from q0 as bf16 into qsm (they arrive rounded:
+// the top halves of the f32 bit patterns), zero past nql up to the
+// 8-query tile; for int8 rows in the k order of each 16-column group,
+// K_ORDER = {0, 1, 4, 5, 8, 9, 12, 13 | 2, 3, 6, 7, 10, 11, 14, 15}: chunk
+// 2m + h of a group holds its columns 4i + 2h + {0, 1}, i < 4.
+template <int EB, int BLOCK>
+__device__ __forceinline__ void stage_queries(uint16_t* qsm, const float* __restrict__ q,
+                                              int q0, int nql, int nt, int d, int tid) {
+  const int chunks = d >> 3;  // 8-column query chunks
+  for (int u = tid; u < nt * 8 * chunks; u += BLOCK) {
+    const int qq = u / chunks, ch = u % chunks;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (qq < nql) {
+      const float* p = q + (size_t)(q0 + qq) * d;
+      float x[8];
+      if constexpr (EB == 2) {
+        const float4 s = __ldg(reinterpret_cast<const float4*>(p + ch * 8));
+        const float4 t = __ldg(reinterpret_cast<const float4*>(p + ch * 8) + 1);
+        x[0] = s.x; x[1] = s.y; x[2] = s.z; x[3] = s.w;
+        x[4] = t.x; x[5] = t.y; x[6] = t.z; x[7] = t.w;
+      } else {
+        const float* grp = p + (ch >> 1) * 16 + 2 * (ch & 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 s = __ldg(reinterpret_cast<const float2*>(grp + 4 * i));
+          x[2 * i] = s.x;
+          x[2 * i + 1] = s.y;
+        }
+      }
+      v.x = (__float_as_uint(x[1]) & 0xffff0000u) | (__float_as_uint(x[0]) >> 16);
+      v.y = (__float_as_uint(x[3]) & 0xffff0000u) | (__float_as_uint(x[2]) >> 16);
+      v.z = (__float_as_uint(x[5]) & 0xffff0000u) | (__float_as_uint(x[4]) >> 16);
+      v.w = (__float_as_uint(x[7]) & 0xffff0000u) | (__float_as_uint(x[6]) >> 16);
+    }
+    *reinterpret_cast<uint4*>(qsm + chunk_off(qq, ch, d)) = v;
+  }
+}
+
+// The MMA phase of one warp: each warp owns every 16-row tile of the
+// block, a run of up to NPW 8-query tiles and a share of d, so each query
+// fragment is read from shared memory once per rank (on an H100 the
+// ldmatrix traffic, not the tensor cores, set the pace of this phase).
+// Few queries leave query tiles for few warps, so d is cut into as many
+// k-splits as keep all 8 warps busy (a split spans a multiple of 32
+// columns); the splits' partial dots go to their own slab rows (split p's
+// at slab + p*nt*8*LD) and the selection adds them in split order, so
+// results do not depend on timing. Each warp loads the next 32 columns'
+// fragments before it multiplies the current ones.
+//
+// The role (mma_role) is unpacked into the kernel's own values and the
+// phase (mma_rank) takes them as arguments: held as a struct with the
+// phase as its method, the same code ran B3's bound figure up to 5%
+// slower at Q = 48 on an H100 (PERF.md).
+struct MmaRole {
+  int splits;  // k-splits of d
+  int nt0;     // the warp's first 8-query tile
+  int my_nt;   // its query tiles (0: the copy warp, or no tile left)
+  int split;   // its k-split
+  int kc0;     // the split's first 8-column query chunk
+  int steps;   // the split's 32-column steps
+  int a_off;   // the lane's ldmatrix offset into a ring slot
+};
+
+template <int NPW, int EB>
+__device__ __forceinline__ MmaRole mma_role(int warp, int lane, int nt, int d, int gp,
+                                            bool idle) {
+  const int chunks = d >> 3;
+  int splits = WARPS;
+  while (splits > 1 && (chunks % (4 * splits) || nt > NPW * (WARPS / splits))) {
+    splits >>= 1;
+  }
+  const int wcols = WARPS / splits;               // warps across query tiles
+  const int npw = (nt + wcols - 1) / wcols;
+  const int nt0 = warp % wcols * npw;
+  const int split = warp / wcols;
+  // ldmatrix lanes: A (rows) x4 = M index 0-7 / 8-15 x 16 bytes +0 / +16
+  // (bf16: columns +0 / +8 of one k16 step; int8: the 16-column groups
+  // +0 / +16, two k16 steps), M index m of tile mt being row 2*mt + m/8 of
+  // group m%8
+  return {splits, nt0, idle ? 0 : max(0, min(npw, nt - nt0)), split,
+          split * (chunks / splits), chunks / splits / 4,
+          (lane & 7) * gp + ((lane >> 3) & 1) * d * EB + (lane >> 4) * 16};
+}
+
+// The warp's dots of one rank (my_nt > 0): A rows from a_base (the ring
+// slot plus the role's a_off), B queries from q_base (x4 = 8 queries x
+// chunks +0..+3, two k16 steps), into its split's rows of the slab.
+template <typename Row, int C, int QCAP>
+__device__ __forceinline__ void mma_rank(uint32_t a_base, uint32_t q_base, float* slab,
+                                         int d, int nt, int lane, int nt0, int my_nt,
+                                         int split, int kc0, int steps) {
+  using Sh = Shape<C, QCAP>;
+  constexpr int NPW = Sh::NPW, LD = Sh::LD;
+  constexpr int EB = sizeof(Row);                // bytes per corpus element
+  constexpr int R = C / 8;                       // rows per group
+  const int b_row = lane & 7;
+  const int b_ch = lane >> 3;
+  float acc[Sh::M_TILES][NPW][4];
+  // A words: bf16 [k16 step][4]; int8 [0][4], the raw bytes of both
+  uint32_t fa[2][Sh::M_TILES][2][4], fb[2][NPW][4];
+#pragma unroll
+  for (int m = 0; m < Sh::M_TILES; ++m) {
+#pragma unroll
+    for (int i = 0; i < NPW; ++i) {
+      acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.f;
+    }
+  }
+  // fragments of the 32 columns from query chunk k into buffer b
+  auto load = [&](int k, int b) {
+#pragma unroll
+    for (int m = 0; m < Sh::M_TILES; ++m) {
+      const uint32_t at = a_base + 2 * m * d * EB + k * 8 * EB;
+      ldsm_x4(at, fa[b][m][0]);
+      if constexpr (EB == 2) ldsm_x4(at + 32, fa[b][m][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < NPW; ++i) {
+      if (i < my_nt) {
+        ldsm_x4(q_base + 2 * chunk_off((nt0 + i) * 8 + b_row, k + b_ch, d), fb[b][i]);
+      }
+    }
+  };
+  auto multiply = [&](int b) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int m = 0; m < Sh::M_TILES; ++m) {
+        uint32_t af[4];
+        if constexpr (EB == 2) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[e] = fa[b][m][h][e];
+        } else {
+          // rows g / g+8 of 16-column group h: logical columns
+          // {2t, 2t+1} (lo) and {2t+8, 2t+9} (hi)
+          widen_i8(fa[b][m][0][2 * h], af[0], af[2]);
+          widen_i8(fa[b][m][0][2 * h + 1], af[1], af[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < NPW; ++i) {
+          if (i < my_nt) {
+            mma_bf16(acc[m][i], af, fb[b][i][2 * h], fb[b][i][2 * h + 1]);
+          }
+        }
+      }
+    }
+  };
+  load(kc0, 0);
+  for (int t = 0; t < steps; t += 2) {
+    if (t + 1 < steps) load(kc0 + 4 * (t + 1), 1);
+    multiply(0);
+    if (t + 1 < steps) {
+      if (t + 2 < steps) load(kc0 + 4 * (t + 2), 0);
+      multiply(1);
+    }
+  }
+  // fragment (M index lane/4 (+8), queries 2*(lane%4) (+1)) -> this
+  // split's rows of the slab, at the rows' slot positions
+  float* part = slab + (size_t)split * nt * 8 * LD + (lane >> 2) * R;
+#pragma unroll
+  for (int m = 0; m < Sh::M_TILES; ++m) {
+#pragma unroll
+    for (int i = 0; i < NPW; ++i) {
+      if (i < my_nt) {
+        const int qq = (nt0 + i) * 8 + 2 * (lane & 3);
+        part[qq * LD + 2 * m] = acc[m][i][0];
+        part[(qq + 1) * LD + 2 * m] = acc[m][i][1];
+        part[qq * LD + 2 * m + 1] = acc[m][i][2];
+        part[(qq + 1) * LD + 2 * m + 1] = acc[m][i][3];
+      }
+    }
+  }
+}
+
+// ---- the residue-class kernel ----------------------------------------------
 
 // Block (tile, C classes from c0) x (query chunk): walks the tile's G
 // groups in rank order; per rank, C rows x the chunk's queries on the
@@ -260,15 +463,6 @@ struct Args {
 // holds its warp for hundreds of cycles, so where registers allow, a
 // ninth warp issues them all (lane w, group w); else lane 0 of MMA warp w
 // issues group w.
-// MMA: each warp owns every 16-row tile of the block, a run of up to NPW
-// 8-query tiles and a share of d, so each query fragment is read from
-// shared memory once per rank (on an H100 the ldmatrix traffic, not the
-// tensor cores, set the pace of this phase). Few queries leave query
-// tiles for few warps, so d is cut into as many k-splits as keep all 8
-// warps busy (a split spans a multiple of 32 columns); the splits' partial
-// dots go to their own slab rows and the selection adds them in split
-// order, so results do not depend on timing. Each warp loads the next 32
-// columns' fragments before it multiplies the current ones.
 // Selection: thread (class, query slot) keeps the top-3 of its queries in
 // registers; for Bound it loads its row's scale and radd before the MMA
 // phase, so the loads land while the dots are made. QCAP sizes the code to
@@ -278,7 +472,7 @@ template <typename Row, typename Figure, int C, int QCAP>
 __global__ void __launch_bounds__(Shape<C, QCAP>::BLOCK, 1)
 tc_kernel(Args a, int half_bits, int qc, int slots) {
   using Sh = Shape<C, QCAP>;
-  constexpr int NPW = Sh::NPW, SLOTS = Sh::SLOTS, QPT = Sh::QPT, LD = Sh::LD;
+  constexpr int SLOTS = Sh::SLOTS, QPT = Sh::QPT, LD = Sh::LD;
   constexpr int BLOCKS_PER_TILE = CLASSES / C;
   constexpr int EB = sizeof(Row);                // bytes per corpus element
   constexpr int R = C / 8;                       // rows per group
@@ -307,25 +501,19 @@ tc_kernel(Args a, int half_bits, int qc, int slots) {
   const int nt = (nql + 7) >> 3;                 // their 8-query tiles
   const int groups = a.tile_rows / CLASSES;
   const long long tile_base = (long long)tile * a.tile_rows;
-  const int chunks = d >> 3;                     // 8-column query chunks
 
-  // bulk-copy the C rows of rank r into ring slot r % slots, group w by
-  // copier thread w (the copy warp's lanes, or lane 0 of each MMA warp),
-  // the expected bytes posted by copier thread 0; rows at or past n are not
-  // read (their figures are replaced by NEG_FILL)
+  // rank r: the C contiguous rows of classes c0.. in group g, group w of
+  // the ring their rows w*R..; rows at or past n are not read (their
+  // figures are replaced by NEG_FILL)
   const bool copier = Sh::COPY_WARP ? warp == WARPS : true;
   const int cw = Sh::COPY_WARP ? lane : (lane == 0 ? warp : 8);
   auto issue = [&](int r) {
     const int g = group_of_rank(r, half_bits);
     const long long row0 = tile_base + (long long)g * CLASSES + c0;
     const int rows = (int)max(0LL, min((long long)C, (long long)n - row0));
-    const uint32_t bar = smem_u32(&full[r % slots]);
-    if (cw == 0) mbar_expect(bar, rows * d * EB);
-    const int mine = min(R, rows - cw * R);
-    if (cw < 8 && mine > 0) {
-      bulk_copy(smem_u32(ring + (size_t)(r % slots) * slot_bytes + cw * gp),
-                emb + (row0 + cw * R) * d * EB, mine * d * EB, bar);
-    }
+    issue_rank<EB, R, R>(emb, row0, rows, n, d, cw,
+                         smem_u32(ring + (size_t)(r % slots) * slot_bytes), gp,
+                         smem_u32(&full[r % slots]));
   };
   // the warps that only copy
   const bool copy_only = Sh::COPY_WARP && warp == WARPS;
@@ -336,61 +524,14 @@ tc_kernel(Args a, int half_bits, int qc, int slots) {
   if (copier) {
     for (int r = 0; r < slots - 1; ++r) issue(r);
   }
-  // the chunk's queries as bf16 (they arrive rounded: the top halves of
-  // the f32 bit patterns), zero past nql up to the 8-query tile; for int8
-  // rows in the k order of each 16-column group, K_ORDER = {0, 1, 4, 5, 8,
-  // 9, 12, 13 | 2, 3, 6, 7, 10, 11, 14, 15}: chunk 2m + h of a group holds
-  // its columns 4i + 2h + {0, 1}, i < 4
-  for (int u = tid; u < nt * 8 * chunks; u += Sh::BLOCK) {
-    const int qq = u / chunks, ch = u % chunks;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (qq < nql) {
-      const float* p = a.q + (size_t)(q0 + qq) * d;
-      float x[8];
-      if constexpr (EB == 2) {
-        const float4 s = __ldg(reinterpret_cast<const float4*>(p + ch * 8));
-        const float4 t = __ldg(reinterpret_cast<const float4*>(p + ch * 8) + 1);
-        x[0] = s.x; x[1] = s.y; x[2] = s.z; x[3] = s.w;
-        x[4] = t.x; x[5] = t.y; x[6] = t.z; x[7] = t.w;
-      } else {
-        const float* grp = p + (ch >> 1) * 16 + 2 * (ch & 1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 s = __ldg(reinterpret_cast<const float2*>(grp + 4 * i));
-          x[2 * i] = s.x;
-          x[2 * i + 1] = s.y;
-        }
-      }
-      v.x = (__float_as_uint(x[1]) & 0xffff0000u) | (__float_as_uint(x[0]) >> 16);
-      v.y = (__float_as_uint(x[3]) & 0xffff0000u) | (__float_as_uint(x[2]) >> 16);
-      v.z = (__float_as_uint(x[5]) & 0xffff0000u) | (__float_as_uint(x[4]) >> 16);
-      v.w = (__float_as_uint(x[7]) & 0xffff0000u) | (__float_as_uint(x[6]) >> 16);
-    }
-    *reinterpret_cast<uint4*>(qsm + chunk_off(qq, ch, d)) = v;
-  }
+  stage_queries<EB, Sh::BLOCK>(qsm, a.q, q0, nql, nt, d, tid);
   if constexpr (Figure::NORMS) {
     for (int u = tid; u < qc; u += Sh::BLOCK) qns[u] = u < nql ? a.qn[q0 + u] : 0.f;
   }
 
-  // MMA role: warp -> (run of query tiles, k-split)
-  int splits = WARPS;
-  while (splits > 1 && (chunks % (4 * splits) || nt > NPW * (WARPS / splits))) {
-    splits >>= 1;
-  }
-  const int wcols = WARPS / splits;               // warps across query tiles
-  const int npw = (nt + wcols - 1) / wcols;
-  const int nt0 = warp % wcols * npw;
-  const int my_nt = copy_only ? 0 : max(0, min(npw, nt - nt0));
-  const int split = warp / wcols;
-  const int kc0 = split * (chunks / splits);      // this split's first chunk
-  const int steps = chunks / splits / 4;          // its 32-column steps
-  // ldmatrix lanes: A (rows) x4 = M index 0-7 / 8-15 x 16 bytes +0 / +16
-  // (bf16: columns +0 / +8 of one k16 step; int8: the 16-column groups +0
-  // / +16, two k16 steps), M index m of tile mt being row 2*mt + m/8 of
-  // group m%8; B (queries) x4 = 8 queries x chunks +0..+3 (two k16 steps)
-  const int a_off = (lane & 7) * gp + ((lane >> 3) & 1) * d * EB + (lane >> 4) * 16;
-  const int b_row = lane & 7;
-  const int b_ch = lane >> 3;
+  const MmaRole mr = mma_role<Sh::NPW, EB>(warp, lane, nt, d, gp, copy_only);
+  const int splits = mr.splits, nt0 = mr.nt0, my_nt = mr.my_nt, split = mr.split;
+  const int kc0 = mr.kc0, steps = mr.steps, a_off = mr.a_off;
   const uint32_t q_base = smem_u32(qsm);
   // selection role: thread -> class c0 + cls, queries slot + SLOTS * j
   const int cls = tid % C;
@@ -414,85 +555,9 @@ tc_kernel(Args a, int half_bits, int qc, int slots) {
     mbar_wait(smem_u32(&full[r % slots]), (r / slots) & 1);
     __syncthreads();  // rank r landed; rank r-1's slot and the slab are free
     if (copier && r + slots - 1 < groups) issue(r + slots - 1);
-
     if (my_nt > 0) {
-      const uint32_t a_base =
-          smem_u32(ring + (size_t)(r % slots) * slot_bytes) + a_off;
-      float acc[Sh::M_TILES][NPW][4];
-      // A words: bf16 [k16 step][4]; int8 [0][4], the raw bytes of both
-      uint32_t fa[2][Sh::M_TILES][2][4], fb[2][NPW][4];
-#pragma unroll
-      for (int m = 0; m < Sh::M_TILES; ++m) {
-#pragma unroll
-        for (int i = 0; i < NPW; ++i) {
-          acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.f;
-        }
-      }
-      // fragments of the 32 columns from query chunk k into buffer b
-      auto load = [&](int k, int b) {
-#pragma unroll
-        for (int m = 0; m < Sh::M_TILES; ++m) {
-          const uint32_t at = a_base + 2 * m * d * EB + k * 8 * EB;
-          ldsm_x4(at, fa[b][m][0]);
-          if constexpr (EB == 2) ldsm_x4(at + 32, fa[b][m][1]);
-        }
-#pragma unroll
-        for (int i = 0; i < NPW; ++i) {
-          if (i < my_nt) {
-            ldsm_x4(q_base + 2 * chunk_off((nt0 + i) * 8 + b_row, k + b_ch, d),
-                    fb[b][i]);
-          }
-        }
-      };
-      auto multiply = [&](int b) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int m = 0; m < Sh::M_TILES; ++m) {
-            uint32_t af[4];
-            if constexpr (EB == 2) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) af[e] = fa[b][m][h][e];
-            } else {
-              // rows g / g+8 of 16-column group h: logical columns
-              // {2t, 2t+1} (lo) and {2t+8, 2t+9} (hi)
-              widen_i8(fa[b][m][0][2 * h], af[0], af[2]);
-              widen_i8(fa[b][m][0][2 * h + 1], af[1], af[3]);
-            }
-#pragma unroll
-            for (int i = 0; i < NPW; ++i) {
-              if (i < my_nt) {
-                mma_bf16(acc[m][i], af, fb[b][i][2 * h], fb[b][i][2 * h + 1]);
-              }
-            }
-          }
-        }
-      };
-      load(kc0, 0);
-      for (int t = 0; t < steps; t += 2) {
-        if (t + 1 < steps) load(kc0 + 4 * (t + 1), 1);
-        multiply(0);
-        if (t + 1 < steps) {
-          if (t + 2 < steps) load(kc0 + 4 * (t + 2), 0);
-          multiply(1);
-        }
-      }
-      // fragment (M index lane/4 (+8), queries 2*(lane%4) (+1)) -> this
-      // split's rows of the slab, at the rows' class positions
-      float* part = slab + (size_t)split * nt * 8 * LD + (lane >> 2) * R;
-#pragma unroll
-      for (int m = 0; m < Sh::M_TILES; ++m) {
-#pragma unroll
-        for (int i = 0; i < NPW; ++i) {
-          if (i < my_nt) {
-            const int qq = (nt0 + i) * 8 + 2 * (lane & 3);
-            part[qq * LD + 2 * m] = acc[m][i][0];
-            part[(qq + 1) * LD + 2 * m] = acc[m][i][1];
-            part[qq * LD + 2 * m + 1] = acc[m][i][2];
-            part[(qq + 1) * LD + 2 * m + 1] = acc[m][i][3];
-          }
-        }
-      }
+      mma_rank<Row, C, QCAP>(smem_u32(ring + (size_t)(r % slots) * slot_bytes) + a_off,
+                             q_base, slab, d, nt, lane, nt0, my_nt, split, kc0, steps);
     }
     __syncthreads();  // the slab of rank r is complete
     if (copy_only) continue;
@@ -542,13 +607,45 @@ tc_kernel(Args a, int half_bits, int qc, int slots) {
 
 // ---- launch ----------------------------------------------------------------
 
-template <typename Row, typename Figure, int C, int QCAP>
-int launch_shape(const Args& a, int qc, int smem_max, cudaStream_t stream) {
+// Dynamic shared memory a block may opt in to on the current device, less
+// the static barriers; returns the CUDA error code.
+inline int smem_limit(int& smem_max) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  smem_max -= MAX_SLOTS * 8;
+  return (int)e;
+}
+
+// Queries per block: all nq (padded to 8) where they fit beside two ring
+// slots, else the widest multiple of 8 that does (one corpus read per
+// chunk); 0 where not even 8 fit.
+template <typename Row, int C>
+int query_chunk(int nq, int d, bool norms, int smem_max) {
+  auto fits = [&](int qc) {
+    return smem_bytes<Row, C, MAX_QUERIES>(2, qc, d, norms) <= (size_t)smem_max;
+  };
+  int qc = (nq + 7) / 8 * 8;
+  while (qc > 8 && !fits(qc)) qc -= 8;
+  return fits(qc) ? qc : 0;
+}
+
+// Ring slots beside a chunk of qc queries: as many as fit, 2 to MAX_SLOTS.
+template <typename Row, int C, int QCAP>
+int ring_slots(int qc, int d, bool norms, int smem_max) {
   int slots = MAX_SLOTS;
-  while (slots > 2 && smem_bytes<Row, Figure, C, QCAP>(slots, qc, a.d) > (size_t)smem_max) {
+  while (slots > 2 && smem_bytes<Row, C, QCAP>(slots, qc, d, norms) > (size_t)smem_max) {
     --slots;
   }
-  const int smem = (int)smem_bytes<Row, Figure, C, QCAP>(slots, qc, a.d);
+  return slots;
+}
+
+template <typename Row, typename Figure, int C, int QCAP>
+int launch_shape(const Args& a, int qc, int smem_max, cudaStream_t stream) {
+  const int slots = ring_slots<Row, C, QCAP>(qc, a.d, Figure::NORMS, smem_max);
+  const int smem = (int)smem_bytes<Row, C, QCAP>(slots, qc, a.d, Figure::NORMS);
   const int err = set_smem((const void*)tc_kernel<Row, Figure, C, QCAP>, smem);
   if (err) return err;
   const int tiles = (a.n + a.tile_rows - 1) / a.tile_rows;
@@ -560,14 +657,8 @@ int launch_shape(const Args& a, int qc, int smem_max, cudaStream_t stream) {
 
 template <typename Row, typename Figure, int C>
 int launch_c(const Args& a, int smem_max, cudaStream_t stream) {
-  // all queries in one chunk when they fit beside two ring slots, else the
-  // widest multiple of 8 that does
-  auto fits = [&](int qc) {
-    return smem_bytes<Row, Figure, C, MAX_QUERIES>(2, qc, a.d) <= (size_t)smem_max;
-  };
-  int qc = (a.nq + 7) / 8 * 8;
-  while (qc > 8 && !fits(qc)) qc -= 8;
-  if (!fits(qc)) return (int)cudaErrorInvalidValue;
+  const int qc = query_chunk<Row, C>(a.nq, a.d, Figure::NORMS, smem_max);
+  if (!qc) return (int)cudaErrorInvalidValue;
   if (qc <= 8) return launch_shape<Row, Figure, C, 8>(a, qc, smem_max, stream);
   if (qc <= 64) return launch_shape<Row, Figure, C, 64>(a, qc, smem_max, stream);
   return launch_shape<Row, Figure, C, MAX_QUERIES>(a, qc, smem_max, stream);
@@ -587,11 +678,9 @@ int launch(const Args& a, cudaStream_t stream) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
   if (e != cudaSuccess) return (int)e;
-  smem_max -= MAX_SLOTS * 8;  // the static barriers
+  const int err = smem_limit(smem_max);
+  if (err) return err;
   const int tiles = (a.n + a.tile_rows - 1) / a.tile_rows;
   return 2 * tiles * (CLASSES / 32) > sms ? launch_c<Row, Figure, 32>(a, smem_max, stream)
                                           : launch_c<Row, Figure, 16>(a, smem_max, stream);

@@ -36,7 +36,7 @@ struct DotFigure {
 
   __device__ __forceinline__ void operator()(int row,
                                              float (&acc)[evs::QM]) const {
-    evs::dot_row<float>(emb + (size_t)row * d, qs, d, acc);
+    evs::dot_row(emb + (size_t)row * d, qs, d, acc);
   }
 };
 

@@ -12,7 +12,8 @@ on the dense exact path.
 
 ``block`` (B2, ``csrc/topk_block.cu``): per 256-row block, the top
   ``levels - 1`` rows under (score desc, row asc) and the ``levels``-th
-  score as the bound.
+  score as the bound; bf16 corpora on the tensor cores (the copy, query
+  and MMA phases of ``csrc/topk_tc.cuh``), f32 ones on the CUDA cores.
 ``tree`` (B1, ``csrc/topk_tree.cu``): per (tile, residue class
   ``row % 128``), the reference halving tree's top-2 rows and its
   third-best score as the bound; bf16 corpora on the tensor cores, f32

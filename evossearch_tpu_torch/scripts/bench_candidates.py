@@ -1,9 +1,11 @@
-"""Times the tensor-core candidate kernels at the query counts a caller
-gives them: Q = 1 (a single search), 48 and 128.
+"""Times the candidate kernels at the query counts a caller gives them:
+Q = 1 (a single search), 48, 64 and 128.
 
     python -m evossearch_tpu_torch.scripts.bench_candidates
 
   tree          B1 over 1,048,576 bf16 rows at the bf16 tile (16384 rows)
+  block         B2 over 262,144 bf16 rows at levels 4 and over 4,194,304
+                at levels 3 (``default_levels`` of each size)
   sq8           B3 over 2,097,152 int8 rows at the SQ8 tile (32768 rows)
   bf16_struct   E1: B3's bound over the same rows as bf16
   int8_noscale  E1: the int8 rows ranked by their raw dot
@@ -16,8 +18,8 @@ absolute name and only names that every checkout since the tensor-core B1
 has, so run as a file with ``PYTHONPATH`` set to another checkout's root
 it times that checkout's kernels: two trees compare in one call as
 ``PYTHONPATH=<root> python <this file>`` for each root in turn. Prints the
-card's name and power limit, then one JSON object per kernel. Needs a
-CUDA device and raises without one.
+card's name and power limit, then one JSON object per kernel and size.
+Needs a CUDA device and raises without one.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from evossearch_tpu_torch.ops import topk
 from evossearch_tpu_torch.scripts.exp_sq8_perf import make_corpus
 
 N_TREE, N_SQ8, D = 1 << 20, 1 << 21, 512
-QUERIES = (1, 48, 128)
+N_BLOCK = (1 << 18, 1 << 22)
+QUERIES = (1, 48, 64, 128)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -52,8 +55,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def unit_bf16(n: int, gen: torch.Generator, chunk: int = 1 << 20) -> torch.Tensor:
+    """``n`` seeded unit rows as bf16 on the card, made in chunks."""
+    out = torch.empty((n, D), dtype=torch.bfloat16, device="cuda")
+    for s in range(0, n, chunk):
+        x = torch.randn(min(chunk, n - s), D, generator=gen, device="cuda")
+        out[s : s + x.shape[0]] = (x / torch.linalg.norm(x, dim=1, keepdim=True)).bfloat16()
+    return out
+
+
 def run(seed: int = 0) -> list[dict]:
-    """One row of times (ms) per kernel."""
+    """One row of times (ms) per kernel and size."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench_candidates needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -61,20 +73,27 @@ def run(seed: int = 0) -> list[dict]:
     q /= torch.linalg.norm(q, dim=1, keepdim=True)
     qn = torch.linalg.norm(q, dim=1)
     emb16, e8, scal2 = make_corpus(N_SQ8, gen)
+    rows16 = unit_bf16(max(N_BLOCK), gen)
     tile = topk.SQ8_TILE_ROWS
-    calls = {
-        ("tree", "bf16", N_TREE, 16384): lambda nq: topk.tree_candidates(
-            emb16[:N_TREE], q[:nq], 16384),
-        ("sq8", "int8", N_SQ8, tile): lambda nq: topk.sq8_candidates(
-            e8, scal2, q[:nq], qn[:nq], tile),
-        ("bf16_struct", "bf16", N_SQ8, tile): lambda nq: topk.sq8_variant_candidates(
-            emb16, scal2, q[:nq], qn[:nq], "bf16_struct", tile),
-        ("int8_noscale", "int8", N_SQ8, tile): lambda nq: topk.sq8_variant_candidates(
-            e8, None, q[:nq], None, "int8_noscale", tile),
-    }
-    return [{"kernel": name, "dtype": dtype, "n": n, "d": D, "tile_rows": t,
-             **{f"ms_q{nq}": time_ms(lambda: fn(nq)) for nq in QUERIES}}
-            for (name, dtype, n, t), fn in calls.items()]
+    calls = [
+        ({"kernel": "tree", "dtype": "bf16", "n": N_TREE, "tile_rows": 16384},
+         lambda nq: topk.tree_candidates(emb16[:N_TREE], q[:nq], 16384)),
+        *(({"kernel": "block", "dtype": "bf16", "n": n,
+            "levels": topk.default_levels(n)},
+           lambda nq, n=n: topk.block_candidates(rows16[:n], q[:nq],
+                                                 topk.default_levels(n)))
+          for n in N_BLOCK),
+        ({"kernel": "sq8", "dtype": "int8", "n": N_SQ8, "tile_rows": tile},
+         lambda nq: topk.sq8_candidates(e8, scal2, q[:nq], qn[:nq], tile)),
+        ({"kernel": "bf16_struct", "dtype": "bf16", "n": N_SQ8, "tile_rows": tile},
+         lambda nq: topk.sq8_variant_candidates(
+             emb16, scal2, q[:nq], qn[:nq], "bf16_struct", tile)),
+        ({"kernel": "int8_noscale", "dtype": "int8", "n": N_SQ8, "tile_rows": tile},
+         lambda nq: topk.sq8_variant_candidates(
+             e8, None, q[:nq], None, "int8_noscale", tile)),
+    ]
+    return [{**head, "d": D, **{f"ms_q{nq}": time_ms(lambda: fn(nq)) for nq in QUERIES}}
+            for head, fn in calls]
 
 
 def main() -> None:

@@ -29,20 +29,51 @@ def _exact_inputs(seed, n, d, q):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 512, 768])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_block_kernel_equals_plain(dtype):
+def test_block_kernel_equals_plain(dtype, d):
+    """Bit for bit on exact-dot inputs: two partial last tiles, the serving
+    buckets (1, 8, 64, 128), Q = 48 and Q = 45 (a partial 8- and 16-query
+    tile), levels 3 and 4; at d = 768 and Q = 128 the bf16 path cuts the
+    queries into chunks."""
     _need_gpu()
-    emb, q = _exact_inputs(51, 70_001, 512, 45)
-    e, q = emb.to(DTYPES[dtype]).cuda(), q.cuda()
-    # 45 and 1 queries: a partial 16-query chunk, as the serving path's
-    # query buckets give
-    for nq in (45, 1):
-        for levels in (3, 4):
-            before = topk.LAUNCHES["block"]
-            got = topk.block_candidates(e, q[:nq], levels)
-            assert topk.LAUNCHES["block"] == before + 1
-            want = topk.block_candidates_plain(e, q[:nq], levels)
-            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for n in (70_001, 300_007):
+        emb, q = _exact_inputs(51, n, d, 128)
+        e, q = emb.to(DTYPES[dtype]).cuda(), q.cuda()
+        for nq in (1, 8, 45, 48, 64, 128):
+            for levels in (3, 4):
+                before = topk.LAUNCHES["block"]
+                got = topk.block_candidates(e, q[:nq], levels)
+                assert topk.LAUNCHES["block"] == before + 1
+                want = topk.block_candidates_plain(e, q[:nq], levels)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (n, nq, levels)
+
+
+# over the 67,106,816 rows (cdiv(n, 2048) * 2 blocks in a grid's y) that the
+# block kernel once could not launch past; the last tile is partial
+PAST_OLD_GRID_CAP = 67_110_913
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_block_kernel_past_the_old_grid_cap(dtype):
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    n, d, chunk = PAST_OLD_GRID_CAP, 128, 1 << 20
+    # filled in chunks: integers over the whole shape at once would take
+    # bytes of int64 the card does not have
+    e = torch.empty((n, d), dtype=DTYPES[dtype], device="cuda")
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        e[s : s + m] = torch.randint(-4, 5, (m, d), generator=gen, device="cuda",
+                                     dtype=torch.int8).to(e.dtype) / 16
+    q = torch.randint(-4, 5, (8, d), generator=gen, device="cuda").float() / 16
+    before = topk.LAUNCHES["block"]
+    got = topk.block_candidates(e, q, 4)
+    assert topk.LAUNCHES["block"] == before + 1
+    want = topk.block_candidates_plain(e, q, 4)
+    assert got[0].shape == (4, -(-n // 2048) * 8, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu

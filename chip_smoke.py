@@ -4,14 +4,18 @@
 
 Builds the top-k kernels from evossearch_tpu_torch/ops/csrc with nvcc
 (one nvcc per source, in parallel), holds each against its plain PyTorch
-version and a dense oracle, times them, then drives four paths, each
-with the launch counts set to 0 just before it and read just after (and
-last checks the block kernel past the 67,106,816 rows its grid once
-capped it at: 67,110,913 rows of d = 128, f32 and bf16):
+version and a dense oracle, times them (and times the dense path's full
+sort against torch.topk), then drives five paths, each with the launch
+counts set to 0 just before it and read just after (and last checks the
+block and tree kernels at 67,110,913 rows of d = 128, f32 and bf16, past
+the 67,106,816 rows the block kernel's grid once capped it at):
 
   * the SQ8 time split (``evossearch_tpu_torch.scripts.exp_sq8_perf``):
     B1, B3 and B3's two E1 variants (``sq8_variant``) over 1,048,576 and
     10,485,760 seeded unit rows, and the tier's device half;
+  * f32 corpora of 262,144 and 1,048,576 seeded unit rows on the card
+    through the search routing (``index.search.best_exact_search_batch``),
+    so B2 and B1 run on their f32 paths;
 
 and, at full ViT-B/32 width (random weights, bf16 compute and store):
 
@@ -31,8 +35,9 @@ and, at full ViT-B/32 width (random weights, bf16 compute and store):
 
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. In the closing
-``kernels`` line, ``sq8_variant`` reports the bf16_struct variant; both
-variants have a ``kernel_check`` line. The last line is
+``kernels`` line, ``sq8_variant`` reports the bf16_struct variant (both
+variants have a ``kernel_check`` line), and ``tree_f32`` and
+``block_f32`` the two kernels' f32 paths. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -70,7 +75,9 @@ N_STREAM = 1 << 20  # the stream kernel checks
 SQ8_BUDGET_MB = 1536  # corpus 2 GiB over it, sidecar 1.02 GiB within it
 SQ8_FETCH = 512       # the tier's default fetch (EVOSSEARCH_SQ8_FETCH)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 FMA
+# dense bf16 tensor cores, f32 FMA on the CUDA cores, TF32 tensor cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
+TF32_PASSES = 3  # the f32 candidate kernels' products per f32 product
 SCORE_ATOL = 1e-5  # dense-oracle score tolerance: summation order only
 REPLACES = {
     "block": "evossearch_tpu/ops/topk_pallas.py:279",
@@ -138,22 +145,28 @@ def same_ranking(s, i, s_ref, i_ref) -> bool:
     return bool(np.array_equal(i[clear], i_ref[clear]))
 
 
-def bound_ms_of(nbytes: int, ops: int, dtype) -> tuple[float, str]:
+def bound_ms_of(nbytes: int, ops: int, peak) -> tuple[float, str]:
     """Least time for ``nbytes`` moved at the HBM rate against ``ops``
-    operations at the peak rate for ``dtype``: the larger, and which."""
+    operations at ``PEAK_FLOPS[peak]``: the larger, and which."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = ops / PEAK_FLOPS[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_ms(name: str, n: int, q: int, dtype, out) -> tuple[float, str]:
+def bound_ms(n: int, q: int, dtype, out) -> tuple[float, str]:
     """Least time for one candidate pass: each input byte read once and
-    each output byte written once at the HBM rate, against 2*q*n*d
-    operations at the peak rate for the corpus dtype."""
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = n * D * itemsize + q * D * 4
-    nbytes += sum(t.numel() * t.element_size() for t in out)
+    each output byte written once at the HBM rate, against the products
+    at their peak rate: 2*q*n*d bf16 products for a bf16 corpus, and for
+    an f32 one the 3*2*q*n*d TF32 products of its three passes."""
+    nbytes = _pass_bytes(n, q, dtype, out)
+    if dtype == torch.float32:
+        return bound_ms_of(nbytes, TF32_PASSES * 2 * q * n * D, "tf32")
     return bound_ms_of(nbytes, 2 * q * n * D, dtype)
+
+
+def _pass_bytes(n: int, q: int, dtype, out) -> int:
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return n * D * itemsize + q * D * 4 + sum(t.numel() * t.element_size() for t in out)
 
 
 def library_topk(emb: torch.Tensor, q: torch.Tensor, k: int):
@@ -230,8 +243,14 @@ def kernel_checks(topk, search) -> dict:
             check(err <= SCORE_ATOL, f"{name} {dname} candidate scores within "
                   f"{SCORE_ATOL} of the plain version on unit rows ({err})")
             del ref
-            # (c) timings, (d) bound
-            b_ms, b_by = bound_ms(name, n, Q, dtype, out)
+            # (c) timings, (d) bound; for f32 also the bound of the earlier
+            # CUDA-core design (2*q*n*d f32 FMAs at 67 TFLOP/s)
+            b_ms, b_by = bound_ms(n, Q, dtype, out)
+            if dtype == torch.float32:
+                extra["bound_ms_cuda_core"] = bound_ms_of(
+                    _pass_bytes(n, Q, dtype, out), 2 * Q * n * D, torch.float32)[0]
+                if name == "tree" and k == 48:
+                    extra.update(f32_accumulation_check(topk))
             row = {
                 "phase": "kernel_check", "kernel": name, "dtype": dname,
                 "n": n, "d": D, "q": Q, "k": k,
@@ -275,11 +294,11 @@ def block_bit_equality(topk, emb: torch.Tensor, dtype) -> dict:
 
 
 def block_grid_check(topk) -> list[dict]:
-    """The block kernel past its old grid cap: N_BLOCK_GRID exact-dot rows
-    of width D_BLOCK_GRID, f32 (34 GB) and then bf16, 8 queries, bit for
-    bit against the plain version; each corpus is filled in chunks (one
-    integer draw over the whole shape would need 68 GB of int64) and freed
-    before the next."""
+    """The block kernel past its old grid cap, and the tree kernel at the
+    same size: N_BLOCK_GRID exact-dot rows of width D_BLOCK_GRID, f32 (34
+    GB) and then bf16, 8 queries, each kernel bit for bit against its plain
+    version; each corpus is filled in chunks (one integer draw over the
+    whole shape would need 68 GB of int64) and freed before the next."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     n, d, chunk = N_BLOCK_GRID, D_BLOCK_GRID, 1 << 20
     rows = []
@@ -301,6 +320,18 @@ def block_grid_check(topk) -> list[dict]:
                "q": 8, "levels": 4, "blocks": -(-n // topk.TILE_ROWS) * 8,
                "bit_equal_plain": True,
                "ms": time_ms(lambda: topk.block_candidates(emb, q, 4), reps=5)}
+        emit(row)
+        rows.append(row)
+        tile = topk._tree_tile_rows(dtype)
+        got = topk.tree_candidates(emb, q, tile)
+        torch.cuda.synchronize()
+        want = topk.tree_candidates_plain(emb, q, tile)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"tree {dname} candidates at N={n} d={d} equal the plain version bit for bit")
+        del got, want
+        row = {"phase": "tree_largest_corpus", "dtype": dname, "n": n, "d": d, "q": 8,
+               "tile_rows": tile, "bit_equal_plain": True,
+               "ms": time_ms(lambda: topk.tree_candidates(emb, q, tile), reps=5)}
         emit(row)
         rows.append(row)
         del emb
@@ -520,6 +551,38 @@ def accumulation_check(topk, gen: torch.Generator) -> dict:
     return {"accumulation_err_ratio_max": worst, "accumulation_rows": n}
 
 
+def f32_accumulation_check(topk) -> dict:
+    """accumulation_check's f32 case: B1's f32 path (three TF32 passes,
+    ops/csrc/topk_tc.cuh) emits cand_s at cand_i over cancellation-heavy
+    f32 rows (full mantissas, alternating sign by column, magnitudes
+    spanning 2^14) against a one-signed f32 query spanning 2^14, held
+    against float64 dots of the same rows. The worst error, in units of
+    the split's error model (2^-19 + 2*d*2^-24)*sum|x*q|, must be at most
+    1. Its own generator leaves kernel_checks' inputs as they were."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n, tile = N_SQ8_TAIL, topk._tree_tile_rows(torch.float32)
+    sign = 1 - 2 * (torch.arange(D, device="cuda") % 2)
+    mag = torch.rand(n, D, generator=gen, device="cuda") + 0.5
+    x = mag * 2.0 ** -torch.randint(0, 14, (n, D), generator=gen, device="cuda").float() * sign
+    del mag
+    q = torch.rand(Q, D, generator=gen, device="cuda") + 0.5
+    q = q * 2.0 ** -torch.randint(0, 14, (Q, D), generator=gen, device="cuda").float()
+    q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+    cand_s, cand_i, _ = topk.tree_candidates(x, q, tile)
+    unit = 2.0 ** -19 + 2 * D * 2.0 ** -24
+    worst = 0.0
+    qd = q.double()
+    for j in range(Q):
+        live = cand_i[j] < n  # the partial last tile's padding rows
+        p = x[cand_i[j][live].long()].double() * qd[j]
+        err = (cand_s[j][live].double() - p.sum(1)).abs()
+        worst = max(worst, float((err / (unit * p.abs().sum(1))).max()))
+    check(worst <= 1, f"f32 tensor-core scores within (2^-19 + 2*d*2^-24)*sum|x*q| ({worst})")
+    del x, cand_s, cand_i
+    torch.cuda.empty_cache()
+    return {"f32_err_ratio_max": worst, "f32_err_rows": n}
+
+
 def sq8_split_path(topk) -> int:
     """The SQ8 time split (scripts/exp_sq8_perf.run) with the launch counts
     set to 0 just before and read just after; returns the E1 variants'
@@ -538,6 +601,57 @@ def sq8_split_path(topk) -> int:
         emit(dict(row, launches=launches))
     torch.cuda.empty_cache()
     return launches["sq8_variant"]
+
+
+def f32_search_path(topk, search) -> dict:
+    """The f32 paths of B2 and B1: f32 corpora of N_BLOCK and N_TREE
+    seeded unit rows on the card (a STORE_DTYPE=float32 folder as the
+    engine holds it), searched at k = 48 through the routing the engine
+    calls (``best_exact_search_batch``), with the launch counts set to 0
+    just before and read just after; each result is then held against the
+    dense oracle."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    corpora = {n: unit_rows(n, gen) for n in (N_BLOCK, N_TREE)}
+    queries = unit_rows(Q, gen).cpu().numpy()
+    k = 48
+    for name in topk.LAUNCHES:
+        topk.LAUNCHES[name] = 0
+    out = {n: search.best_exact_search_batch(emb, queries, k) for n, emb in corpora.items()}
+    torch.cuda.synchronize()
+    launches = dict(topk.LAUNCHES)
+    check(launches["block"] > 0 and launches["tree"] > 0,
+          f"the block and tree kernels ran on their f32 path ({launches})")
+    for n, emb in corpora.items():
+        s, i = out[n]
+        o_s, o_i = search.exact_search_batch(emb, torch.from_numpy(queries), k)
+        check(np.all(np.isfinite(s)) and s.shape == (Q, k)
+              and same_ranking(s, i, o_s, o_i),
+              f"f32 search over {n} rows equals the dense oracle")
+    emit({"phase": "f32_search_path", "n": list(corpora), "k": k, "q": Q,
+          "kernel": {n: "tree" if topk.use_tree_kernel(n, k, torch.float32) else "block"
+                     for n in corpora},
+          "launches": launches, "equals_dense_oracle": True})
+    del corpora
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_topk_times(topk) -> dict:
+    """Fault C2's cost: the dense exact path's ``stable_topk`` (a stable
+    sort of every score row) against one ``torch.topk`` (no tie contract,
+    the yardstick) on (Q, 2^18 - 1) f32 scores, the widest a folder on the
+    dense path has, k = 48."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    row = {"phase": "dense_topk_c2", "n": N_BLOCK - 1, "k": 48}
+    for nq in (1, 48, 128):
+        s = torch.randn(nq, N_BLOCK - 1, generator=gen, device="cuda")
+        ref = torch.topk(s, 48, dim=1)
+        got = topk.stable_topk(s, 48)
+        check(torch.equal(got[0], ref.values), f"stable_topk keeps the top-48 scores at Q={nq}")
+        row[f"stable_topk_ms_q{nq}"] = time_ms(lambda: topk.stable_topk(s, 48))
+        row[f"torch_topk_ms_q{nq}"] = time_ms(lambda: torch.topk(s, 48, dim=1))
+    emit(row)
+    return row
 
 
 def stream_checks(topk) -> dict:
@@ -965,26 +1079,30 @@ def run_main_path(topk, search, work: Path) -> dict:
     return launches
 
 
+ROW_TYPES = {"a": "int8", "t": "bf16", "f": "f32"}  # mangled Row -> dtype
+
+
 def tc_instantiations(build_log: dict) -> dict:
     """Registers and spill-store bytes of every instantiation of the
     tensor-core kernels on ops/csrc/topk_tc.cuh's phases, from ptxas's
     report: "<library>:<row>,<figure>,C<classes>,Q<query cap>" for the
-    residue-class kernel, "<library>:bf16,levels<LEV>,Q<query cap>" for
-    B2's -> [regs, spill]."""
+    residue-class kernel, "<library>:<row>,C<rows per rank>,levels<LEV>,
+    Q<query cap>" for B2's -> [regs, spill]."""
     out = {}
     for name, log in build_log.items():
         for chunk in log["log"].split("Compiling entry function")[1:]:
-            m = re.search(r"tc_kernelI([at])NS0_\d+([A-Za-z]+)ELi(\d+)ELi(\d+)E", chunk)
-            b = re.search(r"block_tc_kernelILi(\d+)ELi(\d+)E", chunk)
+            m = re.search(r"tc_kernelI([atf])NS0_\d+([A-Za-z]+)ELi(\d+)ELi(\d+)E", chunk)
+            b = re.search(r"block_tc_kernelI([tf])Li(\d+)ELi(\d+)ELi(\d+)E", chunk)
             regs = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             if not (regs and spill):
                 continue
             if b:
-                key = f"{name}:bf16,levels{b.group(1)},Q{b.group(2)}"
+                key = (f"{name}:{ROW_TYPES[b.group(1)]},C{b.group(2)},levels{b.group(3)},"
+                       f"Q{b.group(4)}")
             elif m:
-                row = {"a": "int8", "t": "bf16"}[m.group(1)]
-                key = f"{name}:{row},{m.group(2)},C{m.group(3)},Q{m.group(4)}"
+                key = (f"{name}:{ROW_TYPES[m.group(1)]},{m.group(2)},C{m.group(3)},"
+                       f"Q{m.group(4)}")
             else:
                 continue
             out[key] = [int(regs.group(1)), int(spill.group(1))]
@@ -1017,30 +1135,41 @@ def main() -> int:
     spills = {name: max((int(x) for x in re.findall(r"(\d+) bytes spill stores", log["log"])),
                         default=0)
               for name, log in _build.BUILD_LOG.items()}
+    tc_regs = tc_instantiations(_build.BUILD_LOG)
     emit({"phase": "build", "seconds": build_s, "arch": "sm_90a",
           "libraries": {k: str(v.relative_to(Path.cwd())) if v.is_relative_to(Path.cwd())
                         else str(v) for k, v in libs.items()},
           "registers_per_thread": regs, "max_spill_store_bytes": spills,
-          "tc_kernel_registers_spill_bytes": tc_instantiations(_build.BUILD_LOG)})
+          "tc_kernel_registers_spill_bytes": tc_regs})
+    for lib in ("topk_tree", "topk_block"):
+        check(lib not in _build.BUILD_LOG or any(key.startswith(f"{lib}:f32") for key in tc_regs),
+              f"the build reports {lib}'s f32 tensor-core instantiations")
+    check(all(spill == 0 for _, spill in tc_regs.values()),
+          "no tensor-core instantiation spills registers")
 
     rows = kernel_checks(topk, search)
     rows[("sq8", "int8", 48)] = sq8_checks(topk)
     rows[("sq8_variant", "bf16", 48)] = sq8_variant_checks(topk)["bf16_struct"]
     for (dname, k), row in stream_checks(topk).items():
         rows[("stream", dname, k)] = row
+    dense_topk_times(topk)
     variant_launches = sq8_split_path(topk)
     launches = main_path(topk, search)
     launches["sq8_variant"] = variant_launches
+    f32_launches = f32_search_path(topk, search)
+    launches["tree_f32"], launches["block_f32"] = f32_launches["tree"], f32_launches["block"]
     # last, so the 51 GB it allocates and frees precede no timing
     block_grid_check(topk)
 
     kernels = []
-    for name, dname in (("tree", "bf16"), ("block", "bf16"), ("sq8", "int8"),
-                        ("stream", "bf16"), ("sq8_variant", "bf16")):
+    for name, dname in (("tree", "bf16"), ("tree", "f32"), ("block", "bf16"),
+                        ("block", "f32"), ("sq8", "int8"), ("stream", "bf16"),
+                        ("sq8_variant", "bf16")):
         row = rows[(name, dname, 48)]
+        key = f"{name}_f32" if dname == "f32" else name
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": key, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

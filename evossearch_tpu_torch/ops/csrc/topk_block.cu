@@ -12,35 +12,26 @@
 // L = cdiv(n, 2048) * 8 blocks cell for cell:
 //   out_s: (LEV, L, nq) f32    out_i: (LEV-1, L, nq) i32
 //
-// Two designs, one per corpus dtype.
-//
-// bf16 corpus (block_tc_kernel): the copy, query and MMA phases of the
-// tensor-core kernel in topk_tc.cuh, on a walk of its own. One CUDA block
-// per 2048-row tile (8 of B2's blocks) serves every query of the launch
-// (the corpus is read once; only at a d so wide that 128 queries and two
-// ring slots do not fit are the queries cut into chunks). Rank r of the
-// walk is rows r*R .. r*R+R-1 (R = C/8) of each of the tile's 8 blocks,
-// block w as ring group w: one bulk copy per group, so slab column w*R + i
-// is block w's row r*R + i. The 256/R ranks go in ascending order, and
-// thread (warp w, lane) inserts block w's R dots of each of its queries
-// (lane + 32*j) into a running top-LEV with strict ">", so each block's
-// rows arrive in ascending order and an equal score that came earlier
-// stays ahead: the reference's lowest index among equal scores, with no
-// merge. bf16 x bf16 products are exact in f32, so exact-dot inputs give
-// the plain version's scores bit for bit. Bound by its bytes on an H100:
-// N*d*2 read once at 3.35 TB/s against 2*Q*N*d products on the tensor
-// cores (989 TFLOP/s).
-//
-// f32 corpus (block_kernel): the tensor cores would round f32 inputs to
-// TF32, so f32 keeps IEEE f32 FMAs on the CUDA cores. One warp per
-// (256-row block, chunk of QM=16 queries), all in grid x; each lane walks
-// 8 consecutive rows in ascending order, scoring each row against its 16
-// queries (f32 FMA) and keeping a running top-LEV per query; the 32 lane
-// states then merge left to right (earlier rows win ties), which is
-// exactly the block's top-LEV. Bound on an H100
-// by its 2*Q*N*d FMAs on the CUDA cores (67 TFLOP/s); the corpus is read
-// once per 16-query chunk, each lane with its own 16-byte loads, no
-// shared-memory staging.
+// Both corpus dtypes run block_tc_kernel, on the copy, query and MMA
+// phases of the tensor-core kernel in topk_tc.cuh, on a walk of its own:
+// bf16 x bf16 products (exact in f32) for bf16 rows, three TF32 passes for
+// f32 rows (the split and its error model are in topk_tc.cuh). One CUDA
+// block per 2048-row tile (8 of B2's blocks) serves every query of the
+// launch (the corpus is read once; only where the queries and two ring
+// slots do not fit, at a wide d or above 64 f32 queries, are the queries
+// cut into chunks). Rank r of the walk is rows r*R .. r*R+R-1 (R = C/8;
+// C = 32 for bf16, 16 for f32, whose 32-row slots would not fit twice
+// beside 48 f32 queries at d = 512) of each of the tile's 8 blocks, block
+// w as ring group w: one bulk copy per group, so slab column w*R + i is
+// block w's row r*R + i. The 256/R ranks go in ascending order, and thread
+// (warp w, lane) inserts block w's R dots of each of its queries (lane +
+// 32*j) into a running top-LEV with strict ">", so each block's rows
+// arrive in ascending order and an equal score that came earlier stays
+// ahead: the reference's lowest index among equal scores, with no merge.
+// Exact-dot inputs give the plain version's scores bit for bit on both
+// dtypes. Bound by its bytes on an H100: N*d*|Row| read once at 3.35
+// TB/s, against 2*Q*N*d bf16 products at 989 TFLOP/s or 3*2*Q*N*d TF32
+// products at 495 TFLOP/s.
 // Times on the card beside the bounds: PERF.md (from chip_smoke.py).
 
 #include "topk_tc.cuh"
@@ -49,102 +40,38 @@ namespace {
 
 constexpr int SUB_ROWS = 256;
 
-// ---- f32: CUDA cores -------------------------------------------------------
-
-constexpr int SEG = 32;                              // lanes per block
-constexpr int ROWS_PER_LANE = SUB_ROWS / SEG;        // 8
-constexpr int SLOTS_PER_BLOCK = evs::THREADS / SEG;  // 4 row blocks
-
-template <int LEV>
-__global__ void __launch_bounds__(evs::THREADS)
-block_kernel(const float* __restrict__ emb, const float* __restrict__ q_in,
-             int nq, int n, int d, int L, float* __restrict__ out_s,
-             int* __restrict__ out_i) {
-  extern __shared__ float qs[];
-  const int chunks = (nq + evs::QM - 1) / evs::QM;
-  const int q0 = blockIdx.x % chunks * evs::QM;
-  evs::load_queries(q_in, nq, d, q0, qs);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.x / chunks * SLOTS_PER_BLOCK + warp;  // warp-uniform
-
-  float s[evs::QM][LEV];
-  int ix[evs::QM][LEV];
-  evs::init_state<LEV>(s, ix);
-  if (b < L) {
-    const int r0 = b * SUB_ROWS + lane * ROWS_PER_LANE;
-    for (int t = 0; t < ROWS_PER_LANE; ++t) {
-      evs::visit_row<LEV>(emb, n, d, qs, r0 + t, s, ix);
-    }
-  }
-  evs::merge_segments<LEV, SEG>(s, ix);
-
-  if (lane == 0 && b < L) {
-#pragma unroll
-    for (int q = 0; q < evs::QM; ++q) {
-      if (q0 + q < nq) {
-#pragma unroll
-        for (int lvl = 0; lvl < LEV; ++lvl) {
-          out_s[((size_t)lvl * L + b) * nq + q0 + q] = s[q][lvl];
-        }
-#pragma unroll
-        for (int lvl = 0; lvl < LEV - 1; ++lvl) {
-          // a level past the block's real rows names the block's first
-          // row, as the reference's NEG_INF knock-out does
-          out_i[((size_t)lvl * L + b) * nq + q0 + q] =
-              s[q][lvl] == evs::NEG_FILL ? b * SUB_ROWS : ix[q][lvl];
-        }
-      }
-    }
-  }
-}
-
-template <int LEV>
-int launch_f32(const float* emb, const float* q, int nq, int n, int d, int L,
-               float* out_s, int* out_i, cudaStream_t stream) {
-  const int smem = evs::QM * d * (int)sizeof(float);
-  const int err = evs::set_smem((const void*)block_kernel<LEV>, smem);
-  if (err) return err;
-  // blocks and query chunks both in grid x (no cap below int32 rows), the
-  // chunks fastest: the chunks of one row range run side by side and
-  // share its rows through L2 (with the chunks in grid y, f32 ran markedly
-  // slower on an H100; PERF.md)
-  const int grid = (L + SLOTS_PER_BLOCK - 1) / SLOTS_PER_BLOCK * ((nq + evs::QM - 1) / evs::QM);
-  block_kernel<LEV><<<grid, evs::THREADS, smem, stream>>>(emb, q, nq, n, d, L,
-                                                          out_s, out_i);
-  return (int)cudaGetLastError();
-}
-
-// ---- bf16: tensor cores ----------------------------------------------------
-
 namespace tc = evs::tc;
 
 constexpr int TILE_ROWS = 2048;                      // rows per CUDA block
 constexpr int BLOCKS_PER_TILE = TILE_ROWS / SUB_ROWS;
-constexpr int C = 32;                                // rows per rank
-constexpr int R = C / 8;                             // of each block
-constexpr int RANKS = SUB_ROWS / R;
 static_assert(BLOCKS_PER_TILE == tc::WARPS, "one selection warp per 256-row block");
+
+// Rows per rank: 32 for bf16 rows, 16 for f32 (R = C/8 of each block).
+template <typename Row>
+__host__ __device__ constexpr int rank_rows() {
+  return sizeof(Row) == 4 ? 16 : 32;
+}
 
 // Block (tile, query chunk). Copies and MMA as tc_kernel (topk_tc.cuh);
 // selection: thread (warp w, lane) keeps the top-LEV of B2 block w of the
 // tile for the queries lane + 32*j in registers.
-template <int LEV, int QCAP>
+template <typename Row, int C, int LEV, int QCAP>
 __global__ void __launch_bounds__(tc::Shape<C, QCAP>::BLOCK, 1)
-block_tc_kernel(const uint16_t* __restrict__ emb_in, const float* __restrict__ q_in,
+block_tc_kernel(const Row* __restrict__ emb_in, const float* __restrict__ q_in,
                 int nq, int n, int d, int L, float* __restrict__ out_s,
                 int* __restrict__ out_i, int qc, int slots) {
   using Sh = tc::Shape<C, QCAP>;
-  constexpr int QPT = (QCAP + 31) / 32, LD = Sh::LD, EB = 2;
+  constexpr int QPT = (QCAP + 31) / 32, LD = Sh::LD, EB = sizeof(Row);
+  constexpr int R = C / 8;                           // rows of each block
+  constexpr int RANKS = SUB_ROWS / R;
 
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[tc::MAX_SLOTS];
   const unsigned char* __restrict__ emb = reinterpret_cast<const unsigned char*>(emb_in);
-  const int gp = tc::group_pitch<uint16_t>(C, d);
+  const int gp = tc::group_pitch<Row>(C, d);
   const int slot_bytes = 8 * gp;
   uint16_t* qsm = reinterpret_cast<uint16_t*>(smem);
-  unsigned char* ring = smem + (size_t)qc * d * 2;
+  unsigned char* ring = smem + (size_t)qc * d * tc::query_bytes<Row>();
   float* slab = reinterpret_cast<float*>(ring + (size_t)slots * slot_bytes);
 
   // the thread index, read once and kept in a register (see tc_kernel)
@@ -206,7 +133,7 @@ block_tc_kernel(const uint16_t* __restrict__ emb_in, const float* __restrict__ q
     __syncthreads();  // rank r landed; rank r-1's slot and the slab are free
     if (copier && r + slots - 1 < RANKS) issue(r + slots - 1);
     if (my_nt > 0) {
-      tc::mma_rank<uint16_t, C, QCAP>(
+      tc::mma_rank<Row, C, QCAP>(
           tc::smem_u32(ring + (size_t)(r % slots) * slot_bytes) + a_off, q_base, slab, d,
           nt, lane, nt0, my_nt, split, kc0, steps);
     }
@@ -262,43 +189,51 @@ block_tc_kernel(const uint16_t* __restrict__ emb_in, const float* __restrict__ q
   }
 }
 
-template <int LEV, int QCAP>
-int launch_tc_shape(const void* emb, const float* q, int nq, int n, int d, int L,
-                    float* out_s, int* out_i, int qc, int smem_max, cudaStream_t stream) {
-  const int slots = tc::ring_slots<uint16_t, C, QCAP>(qc, d, false, smem_max);
-  const int smem = (int)tc::smem_bytes<uint16_t, C, QCAP>(slots, qc, d, false);
-  const int err = evs::set_smem((const void*)block_tc_kernel<LEV, QCAP>, smem);
+template <typename Row, int LEV, int QCAP>
+int launch_shape(const void* emb, const float* q, int nq, int n, int d, int L,
+                 float* out_s, int* out_i, int qc, int smem_max, cudaStream_t stream) {
+  constexpr int C = rank_rows<Row>();
+  const int slots = tc::ring_slots<Row, C, QCAP>(qc, d, false, smem_max);
+  const int smem = (int)tc::smem_bytes<Row, C, QCAP>(slots, qc, d, false);
+  const int err = evs::set_smem((const void*)block_tc_kernel<Row, C, LEV, QCAP>, smem);
   if (err) return err;
   const dim3 grid(L / BLOCKS_PER_TILE, (nq + qc - 1) / qc);
-  block_tc_kernel<LEV, QCAP><<<grid, tc::Shape<C, QCAP>::BLOCK, smem, stream>>>(
-      static_cast<const uint16_t*>(emb), q, nq, n, d, L, out_s, out_i, qc, slots);
+  block_tc_kernel<Row, C, LEV, QCAP><<<grid, tc::Shape<C, QCAP>::BLOCK, smem, stream>>>(
+      static_cast<const Row*>(emb), q, nq, n, d, L, out_s, out_i, qc, slots);
   return (int)cudaGetLastError();
 }
 
 // Needs d % 64 == 0 and 1 <= nq <= 128, L = cdiv(n, 2048) * 8.
-template <int LEV>
-int launch_tc(const void* emb, const float* q, int nq, int n, int d, int L,
-              float* out_s, int* out_i, cudaStream_t stream) {
+template <typename Row, int LEV>
+int launch(const void* emb, const float* q, int nq, int n, int d, int L,
+           float* out_s, int* out_i, cudaStream_t stream) {
   if (d % 64 || nq < 1 || nq > tc::MAX_QUERIES || L % BLOCKS_PER_TILE) {
     return (int)cudaErrorInvalidValue;
   }
   int smem_max = 0;
   const int err = tc::smem_limit(smem_max);
   if (err) return err;
-  const int qc = tc::query_chunk<uint16_t, C>(nq, d, false, smem_max);
+  const int qc = tc::query_chunk<Row, rank_rows<Row>()>(nq, d, false, smem_max);
   if (!qc) return (int)cudaErrorInvalidValue;
-  if (qc <= 8) return launch_tc_shape<LEV, 8>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
-  if (qc <= 64) return launch_tc_shape<LEV, 64>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
-  return launch_tc_shape<LEV, tc::MAX_QUERIES>(emb, q, nq, n, d, L, out_s, out_i, qc,
-                                               smem_max, stream);
+  if (qc <= 8) {
+    return launch_shape<Row, LEV, 8>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
+  }
+  if constexpr (sizeof(Row) == 4) {  // at most 64 f32 queries a block
+    return launch_shape<Row, LEV, 64>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
+  } else {
+    if (qc <= 64) {
+      return launch_shape<Row, LEV, 64>(emb, q, nq, n, d, L, out_s, out_i, qc, smem_max, stream);
+    }
+    return launch_shape<Row, LEV, tc::MAX_QUERIES>(emb, q, nq, n, d, L, out_s, out_i, qc,
+                                                   smem_max, stream);
+  }
 }
 
 template <int LEV>
-int launch(const void* emb, int is_bf16, const float* q, int nq, int n, int d,
-           int L, float* out_s, int* out_i, cudaStream_t stream) {
-  return is_bf16 ? launch_tc<LEV>(emb, q, nq, n, d, L, out_s, out_i, stream)
-                 : launch_f32<LEV>(static_cast<const float*>(emb), q, nq, n, d, L,
-                                   out_s, out_i, stream);
+int launch_dtype(const void* emb, int is_bf16, const float* q, int nq, int n, int d,
+                 int L, float* out_s, int* out_i, cudaStream_t stream) {
+  return is_bf16 ? launch<uint16_t, LEV>(emb, q, nq, n, d, L, out_s, out_i, stream)
+                 : launch<float, LEV>(emb, q, nq, n, d, L, out_s, out_i, stream);
 }
 
 }  // namespace
@@ -310,7 +245,7 @@ extern "C" int evs_topk_block(const void* emb, int is_bf16, const float* q,
                               int nq, int n, int d, int levels, int L,
                               float* out_s, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (levels == 3) return launch<3>(emb, is_bf16, q, nq, n, d, L, out_s, out_i, st);
-  if (levels == 4) return launch<4>(emb, is_bf16, q, nq, n, d, L, out_s, out_i, st);
+  if (levels == 3) return launch_dtype<3>(emb, is_bf16, q, nq, n, d, L, out_s, out_i, st);
+  if (levels == 4) return launch_dtype<4>(emb, is_bf16, q, nq, n, d, L, out_s, out_i, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,21 +1,22 @@
-// Tensor-core candidate kernels. The residue-class kernel serves four users:
+// Tensor-core candidate kernels. The residue-class kernel serves five users:
 //   B1's bf16 path   (topk_tree.cu)  tc_kernel<uint16_t, RawDot>
+//   B1's f32 path    (topk_tree.cu)  tc_kernel<float,    RawDot>
 //   B3, the SQ8 sweep (topk_sq8.cu)  tc_kernel<int8_t,   Bound>
 //   E1 bf16_struct    (topk_sq8.cu)  tc_kernel<uint16_t, Bound>
 //   E1 int8_noscale   (topk_sq8.cu)  tc_kernel<int8_t,   RawDot>
-// and B2's bf16 path (topk_block.cu, block_tc_kernel) walks 256-row blocks
-// on the same three phases, held here once for both walks: the bulk copies
-// of a rank's 8 row groups into the ring (issue_rank), the queries staged
-// in shared memory (stage_queries) and the MMA phase into the dot slab
-// (mma_role, mma_rank). Each walk keeps its own rows per rank, selection
-// and epilogue.
-// Row is the corpus element (bf16 bits or int8); Figure is what the
-// selection ranks: the raw dot <row, q~> (q~ = bf16(q)), or the SQ8 bound
-// dot*scale + ||q||*radd. For every (query, tile, residue class) the
-// kernel emits the best two figures with their rows and the third-best
-// figure, ties resolved as the reference's halving tree resolves them, in
-// the output layout of topk_class.cuh. Rows at or past n rank at NEG_FILL
-// and keep their row number.
+// and B2 (topk_block.cu, block_tc_kernel, bf16 and f32 rows) walks 256-row
+// blocks on the same three phases, held here once for both walks: the
+// bulk copies of a rank's 8 row groups into the ring (issue_rank), the
+// queries staged in shared memory (stage_queries) and the MMA phase into
+// the dot slab (mma_role, mma_rank). Each walk keeps its own rows per
+// rank, selection and epilogue.
+// Row is the corpus element (bf16 bits, int8 or f32); Figure is what the
+// selection ranks: the raw dot <row, q~> (q~ = bf16(q) for bf16 and int8
+// rows, q itself for f32 rows), or the SQ8 bound dot*scale + ||q||*radd.
+// For every (query, tile, residue class) the kernel emits the best two
+// figures with their rows and the third-best figure, ties resolved as the
+// reference's halving tree resolves them (below). Rows at or past n rank
+// at NEG_FILL and keep their row number.
 //
 // What bounds it on an H100 at Q <= 128 and d = 512: the bytes, N*d*|Row|
 // read once (plus 8*N of scale and radd for Bound) and the outputs
@@ -23,19 +24,23 @@
 // products run on the tensor cores (mma.sync m16n8k16, bf16 x bf16 ->
 // f32, 989 TFLOP/s): at most 128 products per bf16 corpus byte against the
 // ~295 at which the tensor cores would set the pace (256 per int8 byte).
+// f32 rows take three TF32 products each (m16n8k8, 495 TFLOP/s, below):
+// 3*2*Q*N*d at Q = 48 is 72 TF32 products per corpus byte against ~148.
 //
 // Design:
 //   1. dots on the tensor cores, fed by ldmatrix from conflict-free shared
 //      memory;
 //   2. one block serves every query of the launch (up to 128, padded to 8,
-//      resident in shared memory as bf16), so the corpus is read once; only
-//      where d is so wide that 128 queries and two ring slots do not fit
-//      are the queries cut into chunks, one corpus read each;
+//      resident in shared memory as bf16, or up to 64 as f32), so the
+//      corpus is read once; only above 64 f32 queries, or where d is so
+//      wide that the queries and two ring slots do not fit, are the queries
+//      cut into chunks, one corpus read each;
 //   3. each block owns C contiguous classes of one tile (C = 32, or 16
-//      where 32 would leave half the SMs idle), so one rank of the walk is C
-//      contiguous rows, staged by bulk (TMA) copies completing on an
-//      mbarrier into a ring of 2-4 slots that keeps 1-3 ranks in flight
-//      while one is scored;
+//      where 32 would leave half the SMs idle, and always 16 for f32 rows,
+//      whose 32-row slots would not fit twice beside 48 f32 queries at
+//      d = 512), so one rank of the walk is C contiguous rows, staged by
+//      bulk (TMA) copies completing on an mbarrier into a ring of 2-4
+//      slots that keeps 1-3 ranks in flight while one is scored;
 //   4. the MMA pads queries to 8 only, and d is split across the warps that
 //      few queries would leave idle;
 //   5. the block walks the tile's groups itself in the halving tree's rank
@@ -43,6 +48,21 @@
 //      memory, and thread (class, query slot) applies the Figure and
 //      inserts it into a running top-3 held in registers, so ties resolve
 //      in rank order with no merge.
+//
+// Residue classes. The corpus is cut into tiles of tile_rows rows; class j
+// of tile t is the rows t*tile_rows + j + 128*g, g < G = tile_rows/128. The
+// outputs are the reference's pre-packed layout:
+//   cand_s, cand_i: (nq, tiles*256), tile t owning columns
+//                   [t*256, t*256+128) = best, [t*256+128, t*256+256) = 2nd
+//   m3:             (nq, tiles*128), the class's third-best figure
+// The reference (evossearch_tpu/ops/topk_pallas.py:417-517) reduces each
+// class with a halving tree whose figure-only merges prefer the left
+// operand on ties: a balanced merge over the class's groups taken in the
+// order rank(g) = 2*bitrev(g mod G/2) + (g >= G/2) (bitrev over log2(G/2)
+// bits), which keeps the top two under (figure desc, rank asc) and the
+// exact third value. The walk takes the groups in that order
+// (group_of_rank inverts the formula) with strict ">" insertion, and so
+// gives the reference's outputs bit for bit on ties too.
 //
 // int8 rows. int8 values widen to bf16 exactly (|v| <= 127 < 2^8), so the
 // int8 path is the bf16 path on the same products. The ring holds the
@@ -57,6 +77,27 @@
 // the order. Each fragment word widens once (an XOR bias, byte permutes
 // into the mantissa of 2^23, one subtraction) and serves all of the warp's
 // query tiles: the conversion is paid per row, not per (row, query tile).
+//
+// f32 rows (3xTF32). The reference scores f32 corpora at
+// Precision.HIGHEST, three bf16 passes on its MXU (topk_pallas.py:94-100);
+// here the passes are TF32 (10 stored mantissa bits against bf16's 7).
+// The queries are staged unrounded, as f32 in 16-byte chunks of 4 columns,
+// and one ldmatrix.x4 over f32 rows, read as b16 pairs, gives exactly one
+// m16n8k8 A fragment: each 8x8 b16 matrix is 8 rows by 4 f32 columns, so
+// thread (g = lane/4, t = lane%4) holds a0 = (row g, col t), a1 = (g+8, t),
+// a2 = (g, t+4), a3 = (g+8, t+4); over the staged queries it holds the B
+// fragments b0 = (k = t, query g), b1 = (k = t+4, query g) of two k8 steps.
+// Each word x splits into big = x & 0xffffe000 (its top 11 significant
+// bits, exact in TF32) and small = x - big (exact in f32), rounded to
+// nearest TF32 (split_tf32). Three MMAs per k8 step, small*big, big*small
+// and big*big, go into three accumulators (three dependent chains a third
+// as long as one), joined as (small*big + big*small) + big*big;
+// small*small is dropped. On exact-dot inputs (k/16, |k| <= 4) every
+// small is 0, every product and sum is exact, and the kernel equals the
+// plain version bit for bit. What bounds it on an H100: inside this
+// kernel mma.sync sustains about a quarter of the card's 495 TFLOP/s of
+// TF32, and the split's integer and f32 work per fragment word competes
+// with the MMAs for issue slots (scripts/split_f32_time.py, PERF.md).
 //
 // Accumulation model (what the SQ8 certificate relies on). Products of
 // int8 (or bf16) values and bf16 queries are exact in f32. The tensor
@@ -77,9 +118,21 @@
 // Bound's two products and its sum are written with __fmul_rn/__fadd_rn
 // so they cannot contract into an FMA: the plain version rounds each of
 // the three, and on exact-dot inputs the two agree bit for bit.
+// f32 rows, on the same hypothesis, for d <= 1024:
+//   |s - <x, q>| <= (2^-19 + 2*d*2^-24) * sum|x_k*q_k|.
+// The split loses at most 1.5*2^-20*|x_k*q_k| per product: rounding small
+// to TF32 drops at most its two lowest bits, 2^-22 of |x| (and of |q|),
+// and the dropped small*small is below 2^-20*|x_k*q_k|. The TF32 products
+// are exact in f32. The big*big chain accumulates as above (2*d*2^-24);
+// the small chains hold terms below 2^-10 of their product's, so their own
+// truncation (2*2*d*2^-34) and the two adds joining the chains (about
+// 2^-24) stay under the 2^-21 left over up to d = 1024
+// (tests/test_torch_f32_tc.py holds a numpy model of it; chip_smoke.py
+// measures the worst ratio on the card, f32_err_ratio_max, and checks it
+// is at most 1).
 #pragma once
 
-#include "topk_class.cuh"
+#include "topk_common.cuh"
 
 namespace evs {
 namespace tc {
@@ -88,6 +141,29 @@ constexpr int THREADS = 256;                  // MMA and selection threads
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_QUERIES = 128;              // LANES of ops/topk.py
 constexpr int MAX_SLOTS = 4;                  // ring slots, at most
+constexpr int CLASSES = 128;                  // residue classes of a tile
+constexpr int MIN_TILE_ROWS = 4 * CLASSES;    // G >= 4: half_bits >= 1
+
+// The group at rank r of the halving tree's order, half_bits = log2(G/2)
+// >= 1: the low bit of r picks the half, the rest is the bit-reversed group.
+__device__ __forceinline__ int group_of_rank(int r, int half_bits) {
+  const int low = (int)(__brev((unsigned)(r >> 1)) >> (32 - half_bits));
+  return ((r & 1) << half_bits) + low;
+}
+
+// log2(G/2) for a power-of-two tile of at least MIN_TILE_ROWS rows.
+inline int class_half_bits(int tile_rows) {
+  int half_bits = 0;
+  while ((CLASSES << (half_bits + 1)) < tile_rows) ++half_bits;
+  return half_bits;
+}
+
+// Bytes of one staged query element: f32 rows take f32 queries, the
+// others bf16.
+template <typename Row>
+__host__ __device__ constexpr int query_bytes() {
+  return sizeof(Row) == 4 ? 4 : 2;
+}
 
 // ---- Figures ---------------------------------------------------------------
 
@@ -124,6 +200,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // the 8 queries one ldmatrix phase reads sit in 8 different bank groups.
 __device__ __forceinline__ int chunk_off(int q, int ch, int d) {
   return q * d + ((ch ^ (q & 7)) << 3);
+}
+
+// Float offset of 16-byte chunk ``ch`` (4 columns) of f32 query ``q``,
+// swizzled the same way.
+__device__ __forceinline__ int chunk_off_f32(int q, int ch, int d) {
+  return q * d + ((ch ^ (q & 7)) << 2);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
@@ -171,6 +253,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x8 tf32, rows) * b (8x8 tf32, queries), f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The f32 bits x as big + small: big its top 11 significant bits (exact
+// in TF32), small = x - big (exact in f32) rounded to TF32, to nearest
+// with ties away from zero as cvt.rna.tf32.f32 rounds, by an integer add
+// and mask (cvt ran the f32 kernels markedly slower on an H100).
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& small) {
+  big = x & 0xffffe000u;
+  const float rest = __fsub_rn(__uint_as_float(x), __uint_as_float(big));
+  small = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;
 }
 
 // Four int8 values (bytes 0-3 of w) widened exactly to two bf16 pairs, lo
@@ -232,18 +334,20 @@ __host__ __device__ inline int group_pitch(int c, int d) {
   return c / 8 * d * (int)sizeof(Row) + 16;
 }
 
-// Shared memory of one block: qc queries (bf16, swizzled), s ring slots,
-// the (SLAB_ROWS, C + 1) f32 dot slab, then qc query norms (if norms).
+// Shared memory of one block: qc queries (bf16, or f32 for f32 rows,
+// swizzled), s ring slots, the (SLAB_ROWS, C + 1) f32 dot slab, then qc
+// query norms (if norms).
 template <typename Row, int C, int QCAP>
 size_t smem_bytes(int s, int qc, int d, bool norms) {
   using Sh = Shape<C, QCAP>;
-  return (size_t)qc * d * 2 + (size_t)s * 8 * group_pitch<Row>(C, d) +
+  return (size_t)qc * d * query_bytes<Row>() + (size_t)s * 8 * group_pitch<Row>(C, d) +
          (size_t)Sh::SLAB_ROWS * Sh::LD * 4 + (norms ? (size_t)qc * 4 : 0);
 }
 
 // Arguments of one launch. emb: (n, d) Row, 16-byte aligned; scal2: (2, n)
 // f32 [scale; radd] and qn: (nq,) f32 norms of the unrounded queries, for
-// Bound only; q: (nq, d) f32 already rounded to bf16.
+// Bound only; q: (nq, d) f32, already rounded to bf16 for bf16 and int8
+// rows.
 struct Args {
   const void* emb;
   const float* scal2;
@@ -283,10 +387,11 @@ __device__ __forceinline__ void issue_rank(const unsigned char* __restrict__ emb
 // the top halves of the f32 bit patterns), zero past nql up to the
 // 8-query tile; for int8 rows in the k order of each 16-column group,
 // K_ORDER = {0, 1, 4, 5, 8, 9, 12, 13 | 2, 3, 6, 7, 10, 11, 14, 15}: chunk
-// 2m + h of a group holds its columns 4i + 2h + {0, 1}, i < 4.
+// 2m + h of a group holds its columns 4i + 2h + {0, 1}, i < 4. For f32
+// rows (EB = 4) the queries stay f32, unrounded, 4 columns a chunk.
 template <int EB, int BLOCK>
-__device__ __forceinline__ void stage_queries(uint16_t* qsm, const float* __restrict__ q,
-                                              int q0, int nql, int nt, int d, int tid) {
+__device__ __forceinline__ void stage_queries_b16(uint16_t* qsm, const float* __restrict__ q,
+                                                  int q0, int nql, int nt, int d, int tid) {
   const int chunks = d >> 3;  // 8-column query chunks
   for (int u = tid; u < nt * 8 * chunks; u += BLOCK) {
     const int qq = u / chunks, ch = u % chunks;
@@ -314,6 +419,23 @@ __device__ __forceinline__ void stage_queries(uint16_t* qsm, const float* __rest
       v.w = (__float_as_uint(x[7]) & 0xffff0000u) | (__float_as_uint(x[6]) >> 16);
     }
     *reinterpret_cast<uint4*>(qsm + chunk_off(qq, ch, d)) = v;
+  }
+}
+
+template <int EB, int BLOCK>
+__device__ __forceinline__ void stage_queries(uint16_t* qsm, const float* __restrict__ q,
+                                              int q0, int nql, int nt, int d, int tid) {
+  if constexpr (EB == 4) {
+    float* qf = reinterpret_cast<float*>(qsm);
+    const int chunks = d >> 2;  // 4-column f32 chunks
+    for (int u = tid; u < nt * 8 * chunks; u += BLOCK) {
+      const int qq = u / chunks, ch = u % chunks;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (qq < nql) v = __ldg(reinterpret_cast<const float4*>(q + (size_t)(q0 + qq) * d) + ch);
+      *reinterpret_cast<float4*>(qf + chunk_off_f32(qq, ch, d)) = v;
+    }
+  } else {
+    stage_queries_b16<EB, BLOCK>(qsm, q, q0, nql, nt, d, tid);
   }
 }
 
@@ -356,20 +478,118 @@ __device__ __forceinline__ MmaRole mma_role(int warp, int lane, int nt, int d, i
   const int split = warp / wcols;
   // ldmatrix lanes: A (rows) x4 = M index 0-7 / 8-15 x 16 bytes +0 / +16
   // (bf16: columns +0 / +8 of one k16 step; int8: the 16-column groups
-  // +0 / +16, two k16 steps), M index m of tile mt being row 2*mt + m/8 of
-  // group m%8
+  // +0 / +16, two k16 steps; f32: columns +0 / +4 of one k8 step), M index
+  // m of tile mt being row 2*mt + m/8 of group m%8
   return {splits, nt0, idle ? 0 : max(0, min(npw, nt - nt0)), split,
           split * (chunks / splits), chunks / splits / 4,
           (lane & 7) * gp + ((lane >> 3) & 1) * d * EB + (lane >> 4) * 16};
 }
 
-// The warp's dots of one rank (my_nt > 0): A rows from a_base (the ring
-// slot plus the role's a_off), B queries from q_base (x4 = 8 queries x
-// chunks +0..+3, two k16 steps), into its split's rows of the slab.
+// mma_rank for f32 rows, in 16-column half steps (two k8 steps): A is
+// one x4 per k8 step, B one x4 per query tile (8 queries x f32 chunks
+// +0..+3); every word is split once (split_tf32) and serves the three
+// passes. Half steps keep the double-buffered fragments to 8 + 4*NPW
+// words: the 32-column steps of mma_rank_b16 spilled registers at 64
+// queries, whose block (with its copy warp) may hold 168 a thread.
+template <int C, int QCAP>
+__device__ __forceinline__ void mma_rank_tf32(uint32_t a_base, uint32_t q_base, float* slab,
+                                              int d, int nt, int lane, int nt0, int my_nt,
+                                              int split, int kc0, int steps) {
+  using Sh = Shape<C, QCAP>;
+  constexpr int NPW = Sh::NPW, LD = Sh::LD, MT = Sh::M_TILES;
+  constexpr int R = C / 8;                       // rows per group
+  const int b_row = lane & 7;
+  const int b_ch = lane >> 3;
+  // accumulators of the three passes: [0] big*big, [1] small*big,
+  // [2] big*small
+  float acc[3][MT][NPW][4];
+  // A words [k8 step][4]; B words [b0, b1 of k8 step 0, b0, b1 of step 1]
+  uint32_t fa[2][MT][2][4], fb[2][NPW][4];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int i = 0; i < NPW; ++i) {
+        acc[p][m][i][0] = acc[p][m][i][1] = acc[p][m][i][2] = acc[p][m][i][3] = 0.f;
+      }
+    }
+  }
+  // fragments of the 16 columns from 8-column chunk k into buffer b
+  auto load = [&](int k, int b) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const uint32_t at = a_base + 2 * m * d * 4 + k * 32;
+      ldsm_x4(at, fa[b][m][0]);
+      ldsm_x4(at + 32, fa[b][m][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < NPW; ++i) {
+      if (i < my_nt) {
+        ldsm_x4(q_base + 4 * chunk_off_f32((nt0 + i) * 8 + b_row, 2 * k + b_ch, d), fb[b][i]);
+      }
+    }
+  };
+  auto multiply = [&](int b) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(fa[b][m][s][e], ab[m][e], as[m][e]);
+      }
+#pragma unroll
+      for (int i = 0; i < NPW; ++i) {
+        if (i < my_nt) {
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(fb[b][i][2 * s], bb0, bs0);
+          split_tf32(fb[b][i][2 * s + 1], bb1, bs1);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_tf32(acc[1][m][i], as[m], bb0, bb1);
+            mma_tf32(acc[2][m][i], ab[m], bs0, bs1);
+            mma_tf32(acc[0][m][i], ab[m], bb0, bb1);
+          }
+        }
+      }
+    }
+  };
+  const int halves = 2 * steps;
+  load(kc0, 0);
+  for (int t = 0; t < halves; t += 2) {
+    load(kc0 + 2 * (t + 1), 1);
+    multiply(0);
+    if (t + 2 < halves) load(kc0 + 2 * (t + 2), 0);
+    multiply(1);
+  }
+  // (small*big + big*small) + big*big, then the slab as in mma_rank
+  float* part = slab + (size_t)split * nt * 8 * LD + (lane >> 2) * R;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int i = 0; i < NPW; ++i) {
+      if (i < my_nt) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = __fadd_rn(__fadd_rn(acc[1][m][i][e], acc[2][m][i][e]), acc[0][m][i][e]);
+        }
+        const int qq = (nt0 + i) * 8 + 2 * (lane & 3);
+        part[qq * LD + 2 * m] = v[0];
+        part[(qq + 1) * LD + 2 * m] = v[1];
+        part[qq * LD + 2 * m + 1] = v[2];
+        part[(qq + 1) * LD + 2 * m + 1] = v[3];
+      }
+    }
+  }
+}
+
+// mma_rank for bf16 and int8 rows.
 template <typename Row, int C, int QCAP>
-__device__ __forceinline__ void mma_rank(uint32_t a_base, uint32_t q_base, float* slab,
-                                         int d, int nt, int lane, int nt0, int my_nt,
-                                         int split, int kc0, int steps) {
+__device__ __forceinline__ void mma_rank_b16(uint32_t a_base, uint32_t q_base, float* slab,
+                                             int d, int nt, int lane, int nt0, int my_nt,
+                                             int split, int kc0, int steps) {
   using Sh = Shape<C, QCAP>;
   constexpr int NPW = Sh::NPW, LD = Sh::LD;
   constexpr int EB = sizeof(Row);                // bytes per corpus element
@@ -452,6 +672,22 @@ __device__ __forceinline__ void mma_rank(uint32_t a_base, uint32_t q_base, float
   }
 }
 
+// The warp's dots of one rank (my_nt > 0): A rows from a_base (the ring
+// slot plus the role's a_off), B queries from q_base (bf16: x4 = 8
+// queries x chunks +0..+3, two k16 steps), into its split's rows of the
+// slab.
+template <typename Row, int C, int QCAP>
+__device__ __forceinline__ void mma_rank(uint32_t a_base, uint32_t q_base, float* slab,
+                                         int d, int nt, int lane, int nt0, int my_nt,
+                                         int split, int kc0, int steps) {
+  if constexpr (sizeof(Row) == 4) {
+    mma_rank_tf32<C, QCAP>(a_base, q_base, slab, d, nt, lane, nt0, my_nt, split, kc0, steps);
+  } else {
+    mma_rank_b16<Row, C, QCAP>(a_base, q_base, slab, d, nt, lane, nt0, my_nt, split, kc0,
+                               steps);
+  }
+}
+
 // ---- the residue-class kernel ----------------------------------------------
 
 // Block (tile, C classes from c0) x (query chunk): walks the tile's G
@@ -484,7 +720,7 @@ tc_kernel(Args a, int half_bits, int qc, int slots) {
   const int gp = group_pitch<Row>(C, d);
   const int slot_bytes = 8 * gp;
   uint16_t* qsm = reinterpret_cast<uint16_t*>(smem);
-  unsigned char* ring = smem + (size_t)qc * d * 2;
+  unsigned char* ring = smem + (size_t)qc * d * query_bytes<Row>();
   float* slab = reinterpret_cast<float*>(ring + (size_t)slots * slot_bytes);
   float* qns = slab + Sh::SLAB_ROWS * LD;        // Bound's query norms
 
@@ -621,13 +857,15 @@ inline int smem_limit(int& smem_max) {
 
 // Queries per block: all nq (padded to 8) where they fit beside two ring
 // slots, else the widest multiple of 8 that does (one corpus read per
-// chunk); 0 where not even 8 fit.
+// chunk); at most 64 f32 queries (72 fit at d = 512: the cap spares f32
+// rows a 128-query instantiation); 0 where not even 8 fit.
 template <typename Row, int C>
 int query_chunk(int nq, int d, bool norms, int smem_max) {
   auto fits = [&](int qc) {
     return smem_bytes<Row, C, MAX_QUERIES>(2, qc, d, norms) <= (size_t)smem_max;
   };
-  int qc = (nq + 7) / 8 * 8;
+  constexpr int cap = sizeof(Row) == 4 ? 64 : MAX_QUERIES;
+  int qc = (min(nq, cap) + 7) / 8 * 8;
   while (qc > 8 && !fits(qc)) qc -= 8;
   return fits(qc) ? qc : 0;
 }
@@ -660,19 +898,23 @@ int launch_c(const Args& a, int smem_max, cudaStream_t stream) {
   const int qc = query_chunk<Row, C>(a.nq, a.d, Figure::NORMS, smem_max);
   if (!qc) return (int)cudaErrorInvalidValue;
   if (qc <= 8) return launch_shape<Row, Figure, C, 8>(a, qc, smem_max, stream);
-  if (qc <= 64) return launch_shape<Row, Figure, C, 64>(a, qc, smem_max, stream);
-  return launch_shape<Row, Figure, C, MAX_QUERIES>(a, qc, smem_max, stream);
+  if constexpr (sizeof(Row) == 4) {
+    return launch_shape<Row, Figure, C, 64>(a, qc, smem_max, stream);
+  } else {
+    if (qc <= 64) return launch_shape<Row, Figure, C, 64>(a, qc, smem_max, stream);
+    return launch_shape<Row, Figure, C, MAX_QUERIES>(a, qc, smem_max, stream);
+  }
 }
 
 // Shape of the launch: C = 32 classes per block, or 16 where the tiles
 // are so few that 16 still gives one wave of blocks (32 would leave over
-// half of the SMs idle, as at 2^18 rows of bf16). Needs d % 64 == 0,
-// 1 <= nq <= 128 and a power-of-two tile_rows >= 512; returns the CUDA
-// error code of the launch (0 = launched).
+// half of the SMs idle, as at 2^18 rows of bf16); f32 rows always 16.
+// Needs d % 64 == 0, 1 <= nq <= 128 and a power-of-two tile_rows >= 512;
+// returns the CUDA error code of the launch (0 = launched).
 template <typename Row, typename Figure>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.d % 64 || a.nq < 1 || a.nq > MAX_QUERIES ||
-      a.tile_rows < CLASSES * CLASS_SEG || (a.tile_rows & (a.tile_rows - 1))) {
+      a.tile_rows < MIN_TILE_ROWS || (a.tile_rows & (a.tile_rows - 1))) {
     return (int)cudaErrorInvalidValue;
   }
   int dev = 0, sms = 0, smem_max = 0;
@@ -681,9 +923,13 @@ int launch(const Args& a, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   const int err = smem_limit(smem_max);
   if (err) return err;
-  const int tiles = (a.n + a.tile_rows - 1) / a.tile_rows;
-  return 2 * tiles * (CLASSES / 32) > sms ? launch_c<Row, Figure, 32>(a, smem_max, stream)
-                                          : launch_c<Row, Figure, 16>(a, smem_max, stream);
+  if constexpr (sizeof(Row) == 4) {
+    return launch_c<Row, Figure, 16>(a, smem_max, stream);
+  } else {
+    const int tiles = (a.n + a.tile_rows - 1) / a.tile_rows;
+    return 2 * tiles * (CLASSES / 32) > sms ? launch_c<Row, Figure, 32>(a, smem_max, stream)
+                                            : launch_c<Row, Figure, 16>(a, smem_max, stream);
+  }
 }
 
 }  // namespace tc

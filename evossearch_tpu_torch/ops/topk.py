@@ -12,12 +12,12 @@ on the dense exact path.
 
 ``block`` (B2, ``csrc/topk_block.cu``): per 256-row block, the top
   ``levels - 1`` rows under (score desc, row asc) and the ``levels``-th
-  score as the bound; bf16 corpora on the tensor cores (the copy, query
-  and MMA phases of ``csrc/topk_tc.cuh``), f32 ones on the CUDA cores.
+  score as the bound, on the copy, query and MMA phases of
+  ``csrc/topk_tc.cuh``'s tensor-core kernel.
 ``tree`` (B1, ``csrc/topk_tree.cu``): per (tile, residue class
   ``row % 128``), the reference halving tree's top-2 rows and its
-  third-best score as the bound; bf16 corpora on the tensor cores, f32
-  ones on the CUDA cores.
+  third-best score as the bound, on ``csrc/topk_tc.cuh``'s tensor-core
+  residue-class kernel.
 ``sq8`` (B3, ``csrc/topk_sq8.cu``): the tree's selection over certified
   upper bounds ``<e8, bf16(q)> * scale + ||q|| * radd`` of an int8 corpus
   (the SQ8 capacity tier, ``index/sq8.py``), on the tensor cores with
@@ -38,9 +38,16 @@ same function and are what the CPU tests hold against the reference's
 Pallas kernels in interpret mode.
 
 Numerics: a bf16 corpus is scored against queries rounded to bf16 first,
-bf16 widened exactly to f32 and accumulated in f32; an f32 corpus in IEEE
-f32; the SQ8 sweep always rounds its queries to bf16; ``fused_topk`` never
-does. Scores are f32 throughout. Tie contract: (score desc, row asc).
+bf16 widened exactly to f32 and accumulated in f32; an f32 corpus against
+the unrounded queries, in three TF32 passes on the tensor cores (the
+reference's f32 ``Precision.HIGHEST`` is three bf16 passes), within
+``(2^-19 + 2*d*2^-24) * sum|x_k*q_k|`` of the exact dot (the error model
+is in ``csrc/topk_tc.cuh``) and exact where every value has at most 11
+significant bits and every partial sum is exact in f32; the plain versions
+score in IEEE f32. The SQ8
+sweep always rounds its queries to bf16; ``fused_topk`` never does (IEEE
+f32 FMAs). Scores are f32 throughout. Tie contract: (score desc, row
+asc).
 Shapes: k <= 128, Q <= 128 per call, d % 128 == 0 (``fused_topk``: d % 8).
 """
 
@@ -315,11 +322,14 @@ def _check(emb: torch.Tensor, queries: torch.Tensor) -> None:
 
 
 def _launch(name: str, emb: torch.Tensor, args: list) -> None:
+    """Launch ``topk_<name>`` on the corpus's device; tensors in ``args``
+    pass as their data pointers."""
     from ._build import entry
 
     fn = entry(f"topk_{name}")
     if emb.data_ptr() % 16:
         raise ValueError("corpus must be 16-byte aligned")
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
         rc = fn(*args, stream)
@@ -342,8 +352,7 @@ def block_candidates(emb: torch.Tensor, queries: torch.Tensor, levels: int = LEV
     out_s = torch.empty((levels, blocks, nq), dtype=torch.float32, device=emb.device)
     out_i = torch.empty((levels - 1, blocks, nq), dtype=torch.int32, device=emb.device)
     _launch("block", emb, [
-        emb.data_ptr(), int(emb.dtype == torch.bfloat16), q.data_ptr(),
-        nq, n, d, levels, blocks, out_s.data_ptr(), out_i.data_ptr(),
+        emb, int(emb.dtype == torch.bfloat16), q, nq, n, d, levels, blocks, out_s, out_i,
     ])
     return out_s, out_i
 
@@ -358,19 +367,14 @@ def tree_candidates(emb: torch.Tensor, queries: torch.Tensor, tile_rows: int):
     q = prepare_queries(queries, emb)
     n, d = emb.shape
     nq = q.shape[0]
-    tiles = -(-n // tile_rows)
-    # the f32 path's grid holds 4 blocks of every tile in its y dimension;
-    # the bf16 path's x dimension holds any int32 row count
-    if emb.dtype == torch.float32 and tiles * 4 > 65535:
-        raise ValueError(f"corpus of {n} rows exceeds the tree kernel's grid")
-    cols = tiles * TREE_CLASSES
+    # the grid holds tiles * (128 / C) blocks in its x dimension, so any
+    # int32 row count
+    cols = -(-n // tile_rows) * TREE_CLASSES
     cand_s = torch.empty((nq, 2 * cols), dtype=torch.float32, device=emb.device)
     cand_i = torch.empty((nq, 2 * cols), dtype=torch.int32, device=emb.device)
     bound = torch.empty((nq, cols), dtype=torch.float32, device=emb.device)
     _launch("tree", emb, [
-        emb.data_ptr(), int(emb.dtype == torch.bfloat16), q.data_ptr(),
-        nq, n, d, tile_rows, cand_s.data_ptr(), cand_i.data_ptr(),
-        bound.data_ptr(),
+        emb, int(emb.dtype == torch.bfloat16), q, nq, n, d, tile_rows, cand_s, cand_i, bound,
     ])
     return cand_s, cand_i, bound
 
@@ -422,9 +426,7 @@ def _sq8_launch(name: str, corpus: torch.Tensor, scal2, queries: torch.Tensor,
     cand_i = torch.empty((nq, 2 * cols), dtype=torch.int32, device=dev)
     bound = torch.empty((nq, cols), dtype=torch.float32, device=dev)
     _launch(name, corpus, head + [
-        corpus.data_ptr(), None if sc is None else sc.data_ptr(), q.data_ptr(),
-        None if qn is None else qn.data_ptr(), nq, n, d, tile_rows,
-        cand_s.data_ptr(), cand_i.data_ptr(), bound.data_ptr(),
+        corpus, sc, q, qn, nq, n, d, tile_rows, cand_s, cand_i, bound,
     ])
     return cand_s, cand_i, bound
 
@@ -493,9 +495,8 @@ def fused_topk(emb: torch.Tensor, query: torch.Tensor, k: int, block_rows: int =
     out_s = torch.empty(k, dtype=torch.float32, device=dev)
     out_i = torch.empty(k, dtype=torch.int32, device=dev)
     _launch("stream", emb, [
-        emb.data_ptr(), int(emb.dtype == torch.bfloat16), q.data_ptr(), n, d,
-        k, block_rows, scratch_s.data_ptr(), scratch_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
+        emb, int(emb.dtype == torch.bfloat16), q, n, d, k, block_rows,
+        scratch_s, scratch_i, out_s, out_i,
     ])
     return out_s, out_i.to(torch.int64)
 

@@ -3,9 +3,11 @@ Q = 1 (a single search), 48, 64 and 128.
 
     python -m evossearch_tpu_torch.scripts.bench_candidates
 
-  tree          B1 over 1,048,576 bf16 rows at the bf16 tile (16384 rows)
+  tree          B1 over 1,048,576 bf16 rows at the bf16 tile (16384 rows),
+                and over the same rows as f32 at the f32 tile (8192 rows)
   block         B2 over 262,144 bf16 rows at levels 4 and over 4,194,304
-                at levels 3 (``default_levels`` of each size)
+                at levels 3 (``default_levels`` of each size), and over
+                262,144 of them as f32 at levels 4
   sq8           B3 over 2,097,152 int8 rows at the SQ8 tile (32768 rows)
   bf16_struct   E1: B3's bound over the same rows as bf16
   int8_noscale  E1: the int8 rows ranked by their raw dot
@@ -74,10 +76,15 @@ def run(seed: int = 0) -> list[dict]:
     qn = torch.linalg.norm(q, dim=1)
     emb16, e8, scal2 = make_corpus(N_SQ8, gen)
     rows16 = unit_bf16(max(N_BLOCK), gen)
+    rows32 = rows16[:N_TREE].float()
     tile = topk.SQ8_TILE_ROWS
     calls = [
         ({"kernel": "tree", "dtype": "bf16", "n": N_TREE, "tile_rows": 16384},
          lambda nq: topk.tree_candidates(emb16[:N_TREE], q[:nq], 16384)),
+        ({"kernel": "tree", "dtype": "f32", "n": N_TREE, "tile_rows": 8192},
+         lambda nq: topk.tree_candidates(rows32, q[:nq], 8192)),
+        ({"kernel": "block", "dtype": "f32", "n": N_BLOCK[0], "levels": 4},
+         lambda nq: topk.block_candidates(rows32[:N_BLOCK[0]], q[:nq], 4)),
         *(({"kernel": "block", "dtype": "bf16", "n": n,
             "levels": topk.default_levels(n)},
            lambda nq, n=n: topk.block_candidates(rows16[:n], q[:nq],

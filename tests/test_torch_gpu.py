@@ -112,6 +112,87 @@ def test_tree_bf16_tensor_core_kernel_equals_plain(tile_rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile_rows", [512, 8192])
+def test_tree_f32_tensor_core_kernel_equals_plain(tile_rows):
+    """The f32 path (three TF32 passes), bit for bit on exact-dot inputs,
+    where every split's small part is 0: every query bucket, Q = 48, 65 (two
+    chunks of at most 64 f32 queries) and 96; d = 768 and 1024 cut the
+    queries into narrower chunks."""
+    _need_gpu()
+    for d, counts in ((512, (1, 8, 48, 64, 65, 96, 128)), (768, (128,)), (1024, (48,))):
+        emb, q = _exact_inputs(63, 70_001, d, 128)
+        e, q = emb.cuda(), q.cuda()
+        for nq in counts:
+            before = topk.LAUNCHES["tree"]
+            got = topk.tree_candidates(e, q[:nq], tile_rows)
+            assert topk.LAUNCHES["tree"] == before + 1
+            want = topk.tree_candidates_plain(e, q[:nq], tile_rows)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (d, nq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["block", "tree"])
+def test_f32_kernels_stay_within_the_split_error_model(kernel):
+    """On cancellation-heavy f32 rows (full mantissas, alternating signs,
+    magnitudes spanning 2^14) every emitted score is within
+    (2^-19 + 2*d*2^-24)*sum|x*q| of its float64 dot (ops/csrc/topk_tc.cuh),
+    and on unit rows within 1e-5 of the plain version."""
+    _need_gpu()
+    rng = np.random.default_rng(64)
+    n, d = 70_001, 512
+    sign = np.where(np.arange(d) % 2, -1.0, 1.0)
+    x = (rng.random((n, d)) + 0.5) * 2.0 ** -rng.integers(0, 14, (n, d)) * sign
+    q = (rng.random((16, d)) + 0.5) * 2.0 ** -rng.integers(0, 14, (16, d))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    e = torch.from_numpy(x.astype(np.float32)).cuda()
+    qt = torch.from_numpy(q.astype(np.float32)).cuda()
+    if kernel == "tree":
+        s, i, _ = topk.tree_candidates(e, qt, 8192)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+    else:
+        out_s, out_i = topk.block_candidates(e, qt, 4)
+        s = out_s[:3].permute(2, 1, 0).reshape(16, -1).cpu().numpy()
+        i = out_i.permute(2, 1, 0).reshape(16, -1).cpu().numpy()
+    x64 = x.astype(np.float32).astype(np.float64)
+    q64 = q.astype(np.float32).astype(np.float64)
+    unit = 2.0 ** -19 + 2 * d * 2.0 ** -24
+    for j in range(16):
+        live = (i[j] < n) & (s[j] > topk.NEG_INF)
+        p = x64[i[j][live]] * q64[j]
+        assert (np.abs(s[j][live] - p.sum(1)) <= unit * np.abs(p).sum(1)).all(), j
+    u = torch.randn(n, d, device="cuda")
+    u /= torch.linalg.norm(u, dim=1, keepdim=True)
+    uq = torch.nn.functional.normalize(torch.randn(48, d, device="cuda"), dim=1)
+    if kernel == "tree":
+        got, want = topk.tree_candidates(u, uq, 8192), topk.tree_candidates_plain(u, uq, 8192)
+    else:
+        got, want = topk.block_candidates(u, uq, 4), topk.block_candidates_plain(u, uq, 4)
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            assert float((a - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_tree_kernel_at_the_largest_corpus(dtype):
+    """The tree kernel over 67,110,913 rows of d = 128 (its grid holds the
+    tiles in x on both dtypes), bit for bit on exact-dot inputs."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    n, d, chunk = PAST_OLD_GRID_CAP, 128, 1 << 20
+    e = torch.empty((n, d), dtype=DTYPES[dtype], device="cuda")
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        e[s : s + m] = torch.randint(-4, 5, (m, d), generator=gen, device="cuda",
+                                     dtype=torch.int8).to(e.dtype) / 16
+    q = torch.randint(-4, 5, (8, d), generator=gen, device="cuda").float() / 16
+    tile = topk._tree_tile_rows(DTYPES[dtype])
+    got = topk.tree_candidates(e, q, tile)
+    want = topk.tree_candidates_plain(e, q, tile)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
 def test_search_on_gpu_equals_cpu():
     _need_gpu()
     emb, q = _exact_inputs(53, 300_000, 128, 9)

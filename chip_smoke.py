@@ -4,8 +4,9 @@
 
 Builds the top-k kernels from evossearch_tpu_torch/ops/csrc with nvcc
 (one nvcc per source, in parallel), holds each against its plain PyTorch
-version and a dense oracle, times them (and times the dense path's full
-sort against torch.topk), then drives five paths, each with the launch
+version and a dense oracle (a stable sort written here), times them (and
+checks and times the dense path's selection, stable_topk, against that
+sort and torch.topk), then drives five paths, each with the launch
 counts set to 0 just before it and read just after (and last checks the
 block and tree kernels at 67,110,913 rows of d = 128, f32 and bf16, past
 the 67,106,816 rows the block kernel's grid once capped it at):
@@ -24,7 +25,8 @@ and, at full ViT-B/32 width (random weights, bf16 compute and store):
     and 1,048,576 rows reach the block and the tree kernel through the
     engine's normal routing;
   * the library entry point ``evossearch_tpu_torch.ops.fused_topk`` (the
-    single-query stream kernel) over the 1,048,576-row store;
+    single-query stream kernel) over the 1,048,576-row store, bf16 as the
+    engine holds it and an f32 copy;
   * the over-budget folder: a 2,097,152-row store (2 GiB of bf16) under a
     device budget lowered to 1536 MiB through EVOSSEARCH_HBM_BUDGET_MB
     (a store over the card's own 80% budget would need over 64 GB of
@@ -36,8 +38,8 @@ and, at full ViT-B/32 width (random weights, bf16 compute and store):
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. In the closing
 ``kernels`` line, ``sq8_variant`` reports the bf16_struct variant (both
-variants have a ``kernel_check`` line), and ``tree_f32`` and
-``block_f32`` the two kernels' f32 paths. The last line is
+variants have a ``kernel_check`` line), and ``tree_f32``, ``block_f32``
+and ``stream_f32`` the kernels' f32 paths. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -169,6 +171,21 @@ def _pass_bytes(n: int, q: int, dtype, out) -> int:
     return n * D * itemsize + q * D * 4 + sum(t.numel() * t.element_size() for t in out)
 
 
+def oracle_topk(scores: torch.Tensor, k: int):
+    """The dense oracle's selection, written here apart from the code
+    under test: a stable descending sort of whole rows, cut to k."""
+    vals, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], pos[..., :k]
+
+
+def oracle_scores(emb: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(Q, N) f32 scores as every exact path defines them: queries rounded
+    to bf16 for a bf16 corpus, rows widened exactly, f32 products."""
+    if emb.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).float()
+    return q @ emb.float().T
+
+
 def library_topk(emb: torch.Tensor, q: torch.Tensor, k: int):
     """The yardstick: one cuBLAS product with float32 scores, then
     torch.topk (no tie contract). Timed only; the port never calls it."""
@@ -212,8 +229,7 @@ def kernel_checks(topk, search) -> dict:
                       "version bit for bit")
                 del got, want
             extra = block_bit_equality(topk, emb, dtype) if name == "block" else {}
-            qb = topk.prepare_queries(q, emb)
-            o_s, o_i = topk.stable_topk(topk.dense_scores(emb, qb), k)
+            o_s, o_i = oracle_topk(oracle_scores(emb, q), k)
             ok, s, i = fused(emb, q, k)
             okc = ok.cpu()
             check(torch.equal(s[ok], o_s[ok]) and torch.equal(i[ok], o_i[ok]),
@@ -228,8 +244,7 @@ def kernel_checks(topk, search) -> dict:
             q_128 = unit_rows(max(QUERY_BUCKETS), gen)
             q = q_128[:Q]
             ok, s, i = fused(emb, q, k)
-            o_s, o_i = topk.stable_topk(
-                topk.dense_scores(emb, topk.prepare_queries(q, emb)), k)
+            o_s, o_i = oracle_topk(oracle_scores(emb, q), k)
             okn = ok.cpu().numpy()
             check(same_ranking(s.cpu().numpy()[okn], i.cpu().numpy()[okn],
                                o_s.cpu().numpy()[okn], o_i.cpu().numpy()[okn]),
@@ -637,30 +652,74 @@ def f32_search_path(topk, search) -> dict:
 
 
 def dense_topk_times(topk) -> dict:
-    """Fault C2's cost: the dense exact path's ``stable_topk`` (a stable
-    sort of every score row) against one ``torch.topk`` (no tie contract,
-    the yardstick) on (Q, 2^18 - 1) f32 scores, the widest a folder on the
-    dense path has, k = 48."""
+    """Fault C2, the dense exact path's selection: ``stable_topk`` against
+    the smoke's stable sort, values and positions, on random and on
+    tie-heavy scores (rounded to 1/8) at Q = 1, 48 and 128; its time
+    against one ``torch.topk`` (no tie contract, the yardstick) and the
+    full stable sort it replaced, on (Q, 2^18 - 1) f32 scores (the widest
+    a folder on the dense path has), k = 48; at Q = 1-16 the sort and the
+    fetch path apart, where the crossover lies; and both on the short rows
+    of the plain candidate versions (48 queries: 1024 blocks of 256 at
+    k = 4, block; 64 tiles x 128 classes of 128 groups at k = 3, tree)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     row = {"phase": "dense_topk_c2", "n": N_BLOCK - 1, "k": 48}
-    for nq in (1, 48, 128):
+    crossover = topk._SORT_MAX_SCORES, topk._FETCH_MIN_RATIO
+
+    def fetch_ms(x, k):
+        topk._SORT_MAX_SCORES, topk._FETCH_MIN_RATIO = 0, 1
+        try:
+            return time_ms(lambda: topk.stable_topk(x, k))
+        finally:
+            topk._SORT_MAX_SCORES, topk._FETCH_MIN_RATIO = crossover
+
+    for nq in (1, 2, 4, 8, 16, 48, 128):
         s = torch.randn(nq, N_BLOCK - 1, generator=gen, device="cuda")
-        ref = torch.topk(s, 48, dim=1)
-        got = topk.stable_topk(s, 48)
-        check(torch.equal(got[0], ref.values), f"stable_topk keeps the top-48 scores at Q={nq}")
-        row[f"stable_topk_ms_q{nq}"] = time_ms(lambda: topk.stable_topk(s, 48))
-        row[f"torch_topk_ms_q{nq}"] = time_ms(lambda: torch.topk(s, 48, dim=1))
+        ties = torch.round(s * 8) / 8
+        if nq in (1, 48, 128):
+            for name, x in (("random", s), ("tie-heavy", ties)):
+                got, want = topk.stable_topk(x, 48), oracle_topk(x, 48)
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"stable_topk equals a stable sort on {name} scores at Q={nq}")
+            row[f"stable_topk_ms_q{nq}"] = time_ms(lambda: topk.stable_topk(s, 48))
+            row[f"stable_topk_ties_ms_q{nq}"] = time_ms(lambda: topk.stable_topk(ties, 48))
+            row[f"torch_topk_ms_q{nq}"] = time_ms(lambda: torch.topk(s, 48, dim=1))
+        row[f"full_sort_ms_q{nq}"] = time_ms(lambda: oracle_topk(s, 48))
+        row[f"fetch_ms_q{nq}"] = fetch_ms(s, 48)
+    for name, shape, k in (("n256_k4", (Q, 1024, 256), 4), ("n128_k3", (Q, 64, 128, 128), 3)):
+        s = torch.randn(shape, generator=gen, device="cuda")
+        row[f"short_rows_sort_ms_{name}"] = time_ms(lambda: oracle_topk(s, k))
+        row[f"short_rows_fetch_ms_{name}"] = fetch_ms(s, k)
     emit(row)
     return row
 
 
+def stream_equal(topk, emb: torch.Tensor, q: torch.Tensor, k: int, what: str) -> None:
+    """The stream kernel bit-equal to its plain version and to the dense
+    oracle; ``q`` has norm exactly 1, so the kernel's normalization keeps
+    it, and every score is exact."""
+    s, i = topk.fused_topk(emb, q, k)
+    ps, pi = topk.fused_topk_plain(emb, q, k)
+    check(torch.equal(s, ps) and torch.equal(i, pi),
+          f"stream {what} k={k} equals the plain version bit for bit")
+    os_, oi = oracle_topk(emb.float() @ q, k)
+    m = os_.numel()
+    check(torch.equal(s[:m], os_) and torch.equal(i[:m], oi)
+          and bool((s[m:] == topk.NEG_INF).all()) and bool((i[m:] == -1).all()),
+          f"stream {what} k={k} equals the dense oracle (exact dots)")
+
+
 def stream_checks(topk) -> dict:
-    """The single-query stream kernel against its plain version (bit for
-    bit on exact-dot inputs, whose query of 256 entries +-1/16 has norm
-    exactly 1, and equal to the dense oracle under the tie rule; within
-    SCORE_ATOL on unit rows), timings and bound; bf16 and f32, k = 48 and
-    128."""
+    """The single-query stream kernel against its plain version and the
+    dense oracle, bit for bit on exact-dot inputs (rows of integers over
+    16, a query of 256 entries +-1/16 of norm exactly 1) at k = 1, 48 and
+    128: over 1,048,576 rows; with a plateau of rows tied at the best
+    score on both sides of every block boundary of the persistent grid;
+    on 32,000 strictly ascending scores (every row enters); at n = 1, 40,
+    70,001 and one row past blocks x tile rows. Then on unit rows: within
+    SCORE_ATOL of the plain version with the same ranking, timings and
+    bound at k = 12, 48 and 128. bf16 and f32."""
     gen = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     n = N_STREAM
     for dtype in (torch.bfloat16, torch.float32):
@@ -669,17 +728,28 @@ def stream_checks(topk) -> dict:
         q = torch.zeros(D, device="cuda")
         pick = torch.randperm(D, generator=gen, device="cuda")[:256]
         q[pick] = (torch.randint(0, 2, (256,), generator=gen, device="cuda") * 2 - 1) / 16.0
-        for k in (48, 128):
-            s, i = topk.fused_topk(emb, q, k)
-            ps, pi = topk.fused_topk_plain(emb, q, k)
-            check(torch.equal(s, ps) and torch.equal(i, pi),
-                  f"stream {dname} k={k} equals the plain version bit for bit")
-            os_, oi = topk.stable_topk(emb.float() @ q, k)  # ||q|| = 1 exactly
-            check(torch.equal(s, os_) and torch.equal(i, oi),
-                  f"stream {dname} k={k} equals the dense oracle (exact dots)")
+        tile, blocks = topk._stream_layout(n, D, emb.element_size(), sms)
+        tiles = -(-n // tile)
+        edges = [b * tiles // blocks * tile for b in range(1, blocks)]
+        band = torch.tensor([e + j for e in edges for j in (-2, -1, 0, 1)], device="cuda")
+        plateau = emb.clone()
+        plateau[band] = (torch.sign(q) / 4).to(dtype)  # score 4, above every other row
+        bits = torch.arange(0x80, 0x80 + 32_000, dtype=torch.int32, device="cuda")
+        ascending = torch.zeros(32_000, D, dtype=torch.bfloat16, device="cuda")
+        ascending[:, 0] = bits.to(torch.int16).view(torch.bfloat16)  # ascending, exact
+        e0 = torch.zeros(D, device="cuda")
+        e0[0] = 1.0
+        past = blocks * tile + 1  # one tile more than blocks: one block takes two
+        cases = [(emb, q, f"{dname} n={n}"), (plateau, q, f"{dname} tie plateau"),
+                 (ascending.to(dtype), e0, f"{dname} ascending")]
+        cases += [(emb[:m], q, f"{dname} n={m}") for m in (1, 40, 70_001, past)]
+        for e, qq, what in cases:
+            for k in (1, 48, 128):
+                stream_equal(topk, e, qq, k, what)
+        del plateau, cases
         emb = unit_rows(n, gen).to(dtype).contiguous()
         q = torch.randn(D, generator=gen, device="cuda")
-        for k in (48, 128):
+        for k in (12, 48, 128):
             s, i = topk.fused_topk(emb, q, k)
             ps, pi = topk.fused_topk_plain(emb, q, k)
             err = float((s - ps).abs().max())
@@ -692,7 +762,9 @@ def stream_checks(topk) -> dict:
             qn = q / torch.linalg.norm(q)
             row = {
                 "phase": "kernel_check", "kernel": "stream", "dtype": dname,
-                "n": n, "d": D, "q": 1, "k": k, "max_abs_err": err,
+                "n": n, "d": D, "q": 1, "k": k, "tile_rows": tile, "blocks": blocks,
+                "bit_equal_plain_k": [1, 48, 128],
+                "bit_equal_n": [n, 1, 40, 70_001, past, 32_000], "max_abs_err": err,
                 "ms": time_ms(lambda: topk.fused_topk(emb, q, k)),
                 "plain_ms": time_ms(lambda: topk.fused_topk_plain(emb, q, k)),
                 "library_ms": time_ms(lambda: library_topk(emb, qn[None], k)),
@@ -761,26 +833,34 @@ def tower_times(engine) -> dict:
 def library_path(topk, engine, folder: Path) -> dict:
     """The stream kernel's path: the public entry point
     ``evossearch_tpu_torch.ops.fused_topk`` on the 1,048,576-row store as
-    the engine holds it on the card, for one text query's embedding, with
-    the launch counts set to 0 just before and read just after."""
+    the engine holds it on the card (bf16), then on an f32 copy of it, for
+    one text query's embedding, with the launch counts set to 0 just
+    before each and read just after. Returns the launches of each:
+    ``stream`` (bf16) and ``stream_f32``."""
     from evossearch_tpu_torch.ops import fused_topk
 
     entry, reader = engine._cached_index(str(folder))
     emb_d = engine._entry_emb(entry, reader)
     q = torch.as_tensor(engine.encode_text("a photo of a horse"), device="cuda")
-    for name in topk.LAUNCHES:
-        topk.LAUNCHES[name] = 0
-    out = {k: fused_topk(emb_d, q, k) for k in (12, 48)}
-    torch.cuda.synchronize()
-    launches = dict(topk.LAUNCHES)
-    check(launches["stream"] > 0, "the stream kernel ran on its path")
-    for k, (s, i) in out.items():
-        ps, pi = topk.fused_topk_plain(emb_d, q, k)
-        check(same_ranking(s.cpu()[None], i.cpu()[None], ps.cpu()[None], pi.cpu()[None]),
-              f"ops.fused_topk k={k} over {reader.count} rows equals the dense oracle")
-    emit({"phase": "library_path", "store": folder.name, "n": reader.count,
-          "launches": launches, "equals_dense_oracle": True})
-    return launches
+    counted = {}
+    for key, emb in (("stream", emb_d), ("stream_f32", emb_d.float())):
+        for name in topk.LAUNCHES:
+            topk.LAUNCHES[name] = 0
+        out = {k: fused_topk(emb, q, k) for k in (12, 48)}
+        torch.cuda.synchronize()
+        launches = dict(topk.LAUNCHES)
+        check(launches["stream"] > 0, f"the stream kernel ran on its path ({key})")
+        counted[key] = launches["stream"]
+        for k, (s, i) in out.items():
+            os_, oi = oracle_topk((emb.float() @ (q / torch.linalg.norm(q)))[None], k)
+            check(same_ranking(s.cpu()[None], i.cpu()[None], os_.cpu(), oi.cpu()),
+                  f"ops.fused_topk ({key}) k={k} over {reader.count} rows equals the "
+                  "dense oracle")
+        emit({"phase": "library_path", "store": folder.name, "n": reader.count,
+              "dtype": str(emb.dtype).removeprefix("torch."), "launches": launches,
+              "equals_dense_oracle": True})
+        del emb, out
+    return counted
 
 
 def sq8_stage_split(topk, idx, query: np.ndarray, k: int, reps: int = 10) -> dict:
@@ -1040,8 +1120,8 @@ def run_main_path(topk, search, work: Path) -> dict:
     emit({"phase": "main_path_launches", "launches": launches})
     check(launches["block"] > 0, "the block kernel ran on the main path")
     check(launches["tree"] > 0, "the tree kernel ran on the main path")
-    launches.update(stream=library_path(topk, engine, large)["stream"],
-                    sq8=over_budget_path(topk, engine, work, gen)["sq8"])
+    launches.update(library_path(topk, engine, large))
+    launches.update(sq8=over_budget_path(topk, engine, work, gen)["sq8"])
 
     # -- correctness of what came out (after the counted run) --
     for (name, k), ((scores, idx, reader), text, ms) in results.items():
@@ -1109,6 +1189,28 @@ def tc_instantiations(build_log: dict) -> dict:
     return out
 
 
+def stream_instantiations(build_log: dict) -> dict:
+    """Registers and spill-store bytes of the stream library's kernels,
+    from ptxas's report: "stream_kernel:<row>,QF<query floats a lane
+    holds>" and "final_kernel" -> [regs, spill]."""
+    out = {}
+    log = build_log.get("topk_stream", {}).get("log", "")
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(r"stream_kernelI([tf])Li(\d+)E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        if not (regs and spill):
+            continue
+        if m:
+            key = f"stream_kernel:{ROW_TYPES[m.group(1)]},QF{m.group(2)}"
+        elif "final_kernel" in chunk.splitlines()[0]:
+            key = "final_kernel"
+        else:
+            continue
+        out[key] = [int(regs.group(1)), int(spill.group(1))]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1136,16 +1238,22 @@ def main() -> int:
                         default=0)
               for name, log in _build.BUILD_LOG.items()}
     tc_regs = tc_instantiations(_build.BUILD_LOG)
+    stream_regs = stream_instantiations(_build.BUILD_LOG)
     emit({"phase": "build", "seconds": build_s, "arch": "sm_90a",
           "libraries": {k: str(v.relative_to(Path.cwd())) if v.is_relative_to(Path.cwd())
                         else str(v) for k, v in libs.items()},
           "registers_per_thread": regs, "max_spill_store_bytes": spills,
-          "tc_kernel_registers_spill_bytes": tc_regs})
+          "tc_kernel_registers_spill_bytes": tc_regs,
+          "stream_kernel_registers_spill_bytes": stream_regs})
     for lib in ("topk_tree", "topk_block"):
         check(lib not in _build.BUILD_LOG or any(key.startswith(f"{lib}:f32") for key in tc_regs),
               f"the build reports {lib}'s f32 tensor-core instantiations")
     check(all(spill == 0 for _, spill in tc_regs.values()),
           "no tensor-core instantiation spills registers")
+    check("topk_stream" not in _build.BUILD_LOG or len(stream_regs) == 7,
+          "the build reports the stream kernel's six instantiations and its final merge")
+    check(all(spill == 0 for _, spill in stream_regs.values()),
+          "no kernel of the stream library spills registers")
 
     rows = kernel_checks(topk, search)
     rows[("sq8", "int8", 48)] = sq8_checks(topk)
@@ -1164,7 +1272,7 @@ def main() -> int:
     kernels = []
     for name, dname in (("tree", "bf16"), ("tree", "f32"), ("block", "bf16"),
                         ("block", "f32"), ("sq8", "int8"), ("stream", "bf16"),
-                        ("sq8_variant", "bf16")):
+                        ("stream", "f32"), ("sq8_variant", "bf16")):
         row = rows[(name, dname, 48)]
         key = f"{name}_f32" if dname == "f32" else name
         kernels.append({

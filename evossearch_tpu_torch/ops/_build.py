@@ -42,7 +42,7 @@ _SIGNATURES = {
     "topk_sq8_variant": ("topk_sq8", "evs_topk_sq8_variant",
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "topk_stream": ("topk_stream", "evs_topk_stream",
-                    [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                    [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

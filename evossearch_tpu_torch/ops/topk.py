@@ -48,11 +48,13 @@ score in IEEE f32. The SQ8
 sweep always rounds its queries to bf16; ``fused_topk`` never does (IEEE
 f32 FMAs). Scores are f32 throughout. Tie contract: (score desc, row
 asc).
-Shapes: k <= 128, Q <= 128 per call, d % 128 == 0 (``fused_topk``: d % 8).
+Shapes: k <= 128, Q <= 128 per call, d % 128 == 0 (``fused_topk``: d % 8,
+d <= 2048).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -74,10 +76,30 @@ TREE_CLASSES = LANES
 # Exact top-(k + pad) fetch of the tree merge: a tie plateau wider than
 # the pad fails the counting certificate and takes the exact fallback.
 _TREE_FETCH_PAD = 32
+# ``stable_topk`` keeps the full sort up to this many scores, and for rows
+# shorter than _FETCH_MIN_RATIO fetches. On an NVIDIA H100 (chip_smoke.py
+# phase dense_topk_c2, times in PERF.md) the fetch, whose launches the host
+# paces, overtook the sort between 8 and 16 rows of 262,143 scores (k =
+# 48) on one host and between 16 and 48 on another, and the sort was the
+# faster on the plain candidate versions' rows of 128 and 256 scores at
+# k = 3 and 4.
+_SORT_MAX_SCORES = 1 << 22
+_FETCH_MIN_RATIO = 32
 
 # Kernel launches per wrapper, counted where the CUDA kernel is launched
 # and nowhere else (plain CPU runs do not count).
 LAUNCHES = {"block": 0, "tree": 0, "sq8": 0, "sq8_variant": 0, "stream": 0}
+
+# The stream kernel's layout and selection (csrc/topk_stream.cu holds the
+# same values): rows per ring slot fill 32 KB, at most 64; one block per
+# SM, at most 144 (the blocks' lists fit the final merge's shared memory);
+# the block's candidate buffer; the widest row whose query slice a lane
+# holds in registers.
+_STREAM_SLOT_BYTES = 32768
+_STREAM_MAX_TILE_ROWS = 64
+_STREAM_MAX_BLOCKS = 144
+_STREAM_BUF = 256
+_STREAM_MAX_D = 2048
 
 # SQ8 tile: one 256-candidate block per 32768 rows, half the tree kernel's
 # bf16 candidate density (topk_pallas.py:653-661). The certificate's
@@ -160,11 +182,41 @@ def dense_scores(emb: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def stable_topk(scores: torch.Tensor, k: int):
-    """Exact top-k along the last axis under (score desc, position asc):
-    a stable descending sort. ``torch.topk`` promises nothing on ties."""
+def _sorted_topk(scores: torch.Tensor, k: int):
+    """Top-k along the last axis under (score desc, position asc): a
+    stable descending sort of whole rows."""
     vals, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], pos[..., :k]
+
+
+def stable_topk(scores: torch.Tensor, k: int):
+    """Exact top-k along the last axis under (score desc, position asc),
+    the same values and positions as a stable descending sort.
+    ``torch.topk`` promises nothing on ties, so it fetches the top
+    k + ``_TREE_FETCH_PAD`` only; the fetch is ordered by (score desc,
+    position asc) and cut to k. A row is certified when the fetch's
+    smallest score is strictly below its k-th score m: everything left
+    out scores at most that, so every score >= m was fetched and the ties
+    at m are settled by position. Rows whose tie plateau at m is wider
+    than the pad are redone with the full sort, on those rows only. Up to
+    ``_SORT_MAX_SCORES`` scores, and for rows shorter than
+    ``_FETCH_MIN_RATIO`` fetches, the full sort is faster on the card and
+    is kept."""
+    n = scores.shape[-1]
+    fetch = k + _TREE_FETCH_PAD
+    if scores.numel() <= _SORT_MAX_SCORES or k < 1 or n < _FETCH_MIN_RATIO * fetch:
+        return _sorted_topk(scores, k)
+    x = scores.reshape(-1, n)
+    pos = torch.topk(x, fetch, dim=-1, sorted=False).indices.sort(dim=-1).values
+    vals, o = x.gather(-1, pos).sort(dim=-1, descending=True, stable=True)
+    pos = pos.gather(-1, o)
+    ok = vals[:, -1] < vals[:, k - 1]
+    vals, pos = vals[:, :k], pos[:, :k]
+    if not bool(ok.all()):
+        redo = (~ok).nonzero()[:, 0]
+        vals[redo], pos[redo] = _sorted_topk(x[redo], k)
+    shape = scores.shape[:-1] + (k,)
+    return vals.reshape(shape), pos.reshape(shape)
 
 
 def sort_by_score_then_index(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int):
@@ -465,11 +517,27 @@ def sq8_variant_candidates(corpus: torch.Tensor, scal2, queries: torch.Tensor,
                        [list(SQ8_VARIANTS).index(variant)])
 
 
+def _stream_layout(n: int, d: int, itemsize: int, sms: int) -> tuple[int, int]:
+    """The stream kernel's (tile rows, blocks) for an (n, d) corpus of
+    ``itemsize``-byte elements on a card of ``sms`` SMs: as many rows as
+    fill one 32 KB ring slot (at most 64), and a persistent grid of one
+    block per SM, never more blocks than tiles (csrc/topk_stream.cu)."""
+    tile = max(1, min(_STREAM_MAX_TILE_ROWS, _STREAM_SLOT_BYTES // (d * itemsize)))
+    return tile, min(sms, _STREAM_MAX_BLOCKS, -(-n // tile))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fused_topk(emb: torch.Tensor, query: torch.Tensor, k: int, block_rows: int = 2048):
     """Exact top-k of one query, normalized inside (see
     ``fused_topk_plain``): (scores (k,) f32, rows (k,) int64) under (score
     desc, row asc). ``block_rows`` (a power of two in 128..4096) is the
-    rows one CUDA block scores; the result does not depend on it."""
+    reference's tile and is checked as it checks it; the kernel no longer
+    tiles by it (it streams ring-slot tiles over a persistent grid,
+    ``_stream_layout``), and no result ever depended on it."""
     if emb.dim() != 2 or emb.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("emb must be an (N, d) float32/bfloat16 tensor")
     n, d = emb.shape
@@ -481,6 +549,8 @@ def fused_topk(emb: torch.Tensor, query: torch.Tensor, k: int, block_rows: int =
         raise ValueError(f"block_rows={block_rows} must be a power of two in 128..4096")
     if d % 8 or not emb.is_contiguous():
         raise ValueError("emb must be contiguous with d a multiple of 8")
+    if d > _STREAM_MAX_D:
+        raise ValueError(f"d={d} must be at most {_STREAM_MAX_D}")
     if n >= 1 << 31:
         raise ValueError("corpus rows must fit int32")
     if emb.device.type == "cpu":
@@ -489,16 +559,16 @@ def fused_topk(emb: torch.Tensor, query: torch.Tensor, k: int, block_rows: int =
         raise ValueError(f"no kernel for device {emb.device}")
     dev = emb.device
     q = query.to(device=dev, dtype=torch.float32).reshape(d).contiguous()
-    blocks = -(-n // block_rows)
-    scratch_s = torch.empty(2 * blocks * k, dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(2 * blocks * k, dtype=torch.int32, device=dev)
+    tile, blocks = _stream_layout(n, d, emb.element_size(), _sm_count(dev.index))
+    list_s = torch.empty(blocks * k, dtype=torch.float32, device=dev)
+    list_i = torch.empty(blocks * k, dtype=torch.int32, device=dev)
     out_s = torch.empty(k, dtype=torch.float32, device=dev)
-    out_i = torch.empty(k, dtype=torch.int32, device=dev)
+    out_i = torch.empty(k, dtype=torch.int64, device=dev)
     _launch("stream", emb, [
-        emb, int(emb.dtype == torch.bfloat16), q, n, d, k, block_rows,
-        scratch_s, scratch_i, out_s, out_i,
+        emb, int(emb.dtype == torch.bfloat16), q, n, d, k, tile, blocks,
+        list_s, list_i, out_s, out_i,
     ])
-    return out_s, out_i.to(torch.int64)
+    return out_s, out_i
 
 
 # -- merges and certificates (plain torch on the candidates) --

@@ -1,5 +1,6 @@
 """Times the candidate kernels at the query counts a caller gives them:
-Q = 1 (a single search), 48, 64 and 128.
+Q = 1 (a single search), 48, 64 and 128; and the single-query stream
+kernel at k = 12, 48 and 128.
 
     python -m evossearch_tpu_torch.scripts.bench_candidates
 
@@ -11,6 +12,9 @@ Q = 1 (a single search), 48, 64 and 128.
   sq8           B3 over 2,097,152 int8 rows at the SQ8 tile (32768 rows)
   bf16_struct   E1: B3's bound over the same rows as bf16
   int8_noscale  E1: the int8 rows ranked by their raw dot
+  stream        B4 (``ops.fused_topk``) over the tree's 1,048,576 rows, bf16
+                and f32, one query; also each of its kernels' mean device
+                time over 10 calls at k = 48 and 128 (``torch.profiler``)
 
 Rows are seeded unit rows of d = 512 made on the card; the int8 rows and
 their scalars are quantized from the bf16 rows with the tier's own
@@ -38,6 +42,7 @@ from evossearch_tpu_torch.scripts.exp_sq8_perf import make_corpus
 N_TREE, N_SQ8, D = 1 << 20, 1 << 21, 512
 N_BLOCK = (1 << 18, 1 << 22)
 QUERIES = (1, 48, 64, 128)
+STREAM_K = (12, 48, 128)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -99,8 +104,30 @@ def run(seed: int = 0) -> list[dict]:
          lambda nq: topk.sq8_variant_candidates(
              e8, None, q[:nq], None, "int8_noscale", tile)),
     ]
-    return [{**head, "d": D, **{f"ms_q{nq}": time_ms(lambda: fn(nq)) for nq in QUERIES}}
+    rows = [{**head, "d": D, **{f"ms_q{nq}": time_ms(lambda: fn(nq)) for nq in QUERIES}}
             for head, fn in calls]
+    for dtype, emb in (("bf16", rows16[:N_TREE]), ("f32", rows32)):
+        rows.append({"kernel": "stream", "dtype": dtype, "n": N_TREE, "d": D, **{
+            f"ms_k{k}": time_ms(lambda: topk.fused_topk(emb, q[0], k)) for k in STREAM_K},
+            **{f"kernel_us_k{k}": kernel_us(lambda: topk.fused_topk(emb, q[0], k))
+               for k in STREAM_K[1:]}})
+    return rows
+
+
+def kernel_us(fn, calls: int = 10) -> dict:
+    """Mean device time (us) of each CUDA kernel ``fn`` launches, by the
+    kernel's name, over ``calls`` calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key.replace("(anonymous namespace)::", "").split("(")[0][-48:]:
+            ev.device_time * ev.count / calls
+            for ev in prof.key_averages() if ev.device_time > 0}
 
 
 def main() -> None:

@@ -277,18 +277,44 @@ def test_sq8_variant_kernels_equal_plain(variant):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_stream_kernel_equals_plain(dtype):
+    """Bit for bit on exact-dot inputs (a query of norm exactly 1): at
+    k = 1, 7, 48 and 128 (``block_rows`` is checked, never used); on a
+    plateau of rows tied at the best score around every block boundary of
+    the persistent grid; on strictly ascending scores; at n = 1, 40 and
+    one tile past one tile per block; fewer rows than k pad with
+    (NEG_INF, -1)."""
     _need_gpu()
     rng = np.random.default_rng(57)
     emb, _ = _exact_inputs(58, 70_001, 512, 1)
     q = np.zeros(512, np.float32)  # 256 entries of +-1/16: norm exactly 1
     q[rng.choice(512, 256, replace=False)] = rng.choice([-1.0, 1.0], 256) / 16
     e, q = emb.to(DTYPES[dtype]).cuda(), torch.from_numpy(q).cuda()
-    for k, block_rows in ((48, 2048), (128, 2048), (7, 128), (128, 4096)):
+
+    def same(e, q, k, block_rows=2048):
         before = topk.LAUNCHES["stream"]
         got = topk.fused_topk(e, q, k, block_rows)
         assert topk.LAUNCHES["stream"] == before + 1
         want = topk.fused_topk_plain(e, q, k)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (e.shape, k)
+
+    for k, block_rows in ((48, 2048), (128, 2048), (7, 128), (128, 4096), (1, 2048)):
+        same(e, q, k, block_rows)
+    sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+    tile, blocks = topk._stream_layout(e.shape[0], 512, e.element_size(), sms)
+    tiles = -(-e.shape[0] // tile)
+    edges = [b * tiles // blocks * tile for b in range(1, blocks)]
+    plateau = e.clone()
+    plateau[[r + j for r in edges for j in (-2, -1, 0, 1)]] = (torch.sign(q) / 4).to(e.dtype)
+    bits = torch.arange(0x80, 0x80 + 20_000, dtype=torch.int32)
+    ascending = torch.zeros(20_000, 512, dtype=torch.bfloat16)
+    ascending[:, 0] = bits.to(torch.int16).view(torch.bfloat16)  # strictly ascending
+    e0 = torch.zeros(512, device="cuda")
+    e0[0] = 1.0
+    for k in (1, 48, 128):
+        same(plateau, q, k)
+        same(ascending.to(e.dtype).cuda(), e0, k)
+        for n in (1, 40, blocks * tile + 1):
+            same(e[:n], q, k)
     # fewer rows than k: padded slots read (NEG_INF, -1)
     s, i = topk.fused_topk(e[:40], q, 48)
     assert torch.equal(i[40:].cpu(), torch.full((8,), -1))

@@ -8,12 +8,17 @@ is tested against; it never imports it.
 Layer map (bottom-up):
     core/        model constants, config (EVOSSEARCH_* env surface)
     tokenizer/   byte-BPE CLIP text tokenizer (host-side)
-    models/      CLIP image+text towers (torch modules) + npz checkpoints
-    preprocess/  Pillow decode + resample/center-crop/normalize GEMMs
+    models/      CLIP image+text towers (torch modules), npz checkpoints,
+                 OpenAI / HuggingFace checkpoint converters
+    native       C++ host extension (threaded exact scan, libjpeg decode),
+                 built with g++ at first use
+    preprocess/  native planar/RGB or Pillow decode + resample/center-crop/
+                 normalize GEMMs (and YCbCr->RGB for planar batches)
     ops/         hand-written CUDA top-k candidate kernels + merge glue
     index/       memory-mapped embedding shard store, builder, search
     server/      stdlib WSGI micro-framework + HTTP API + SPA frontend
     utils/       structured logging, timing, torch.profiler hooks
+    __main__     the CLI (python -m evossearch_tpu_torch)
 """
 
 __version__ = "0.1.0"

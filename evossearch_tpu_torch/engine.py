@@ -9,13 +9,19 @@ the host scan).
   * encoders run batched, padded to power-of-two buckets;
   * loaded indexes are cached on the device keyed by manifest mtime, under
     a device-memory budget with LRU eviction;
-  * weights come from a native npz checkpoint when configured, else a
-    seeded random init (``torch.Generator().manual_seed(0)``; the numbers
-    differ from the JAX package's ``jax.random.key(0)`` init).
+  * weights come from the configured checkpoint (a native npz, an OpenAI
+    ``.pt`` or a HuggingFace directory, converted by
+    ``models.load_checkpoint``), else a seeded random init
+    (``torch.Generator().manual_seed(0)``; the numbers differ from the JAX
+    package's ``jax.random.key(0)`` init);
+  * indexing decodes JPEGs with the package's native libjpeg extension at
+    a reduced DCT scale (``FAST_DECODE``) into planar 4:2:0 planes that
+    the device converts to RGB (``PLANAR_JPEG``), Pillow otherwise.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): IVF, the sharded kernel and data-parallel encode (with them the
-mesh-sharded SQ8 tier), OpenAI/HF checkpoint conversion.
+mesh-sharded SQ8 tier), the ResNet towers (a ResNet checkpoint raises
+while it loads, before any index is touched).
 """
 
 from __future__ import annotations
@@ -159,13 +165,15 @@ class SearchEngine:
             return self._params
 
     def _load_params(self):
-        from .models import CLIP, load_model
+        from .models import CLIP, load_checkpoint, load_model, params_from_numpy
 
         path = self.cfg.CHECKPOINT_PATH
         if path:
-            if not path.endswith(".npz"):
-                raise _not_ported("OpenAI/HF checkpoint conversion", "A10")
-            model, spec = load_model(path, self.device)
+            if path.endswith(".npz"):  # the native checkpoint format
+                model, spec = load_model(path, self.device)
+            else:  # OpenAI .pt / HF directory
+                tree, spec = load_checkpoint(path)
+                model = params_from_numpy(tree, spec, self.device)
             self.spec = spec
             log.info("loaded checkpoint %s (%s)", path, spec.name)
             return model
@@ -206,6 +214,20 @@ class SearchEngine:
         )
         return encode_image(self.params, x, self._compute_dtype)
 
+    def _prep_encode_planar(self, y, c, a_h_y, a_w_y, a_h_c, a_w_c,
+                            size_idx) -> torch.Tensor:
+        """Planar twin of _prep_encode: chroma-upsampling resample +
+        YCbCr->RGB + normalize + image tower, fed by the native planar JPEG
+        decode (half the host->device canvas bytes of RGB)."""
+        from .models import encode_image
+        from .preprocess import device_preprocess_planar_indexed
+
+        x = device_preprocess_planar_indexed(
+            y, c, a_h_y, a_w_y, a_h_c, a_w_c, size_idx,
+            out_dtype=self._compute_dtype,
+        )
+        return encode_image(self.params, x, self._compute_dtype)
+
     @property
     def _index_batch(self) -> int:
         """Images per encode in the indexing pipeline (and the bucket cap)."""
@@ -231,38 +253,42 @@ class SearchEngine:
                 self._mat_cache.popitem(last=False)
         return out
 
-    def encode_prepared(
-        self, canvases: np.ndarray, a_h_u: np.ndarray, a_w_u: np.ndarray,
-        size_idx: np.ndarray, fetch: bool = True,
-    ):
-        """Host-prepared batch (canvases + unique-size resample matrices +
-        per-image size index) -> (B, embed_dim) embeddings, padded to a
-        bucket size. Two buckets in flight: bucket i+1's upload and encode
-        are queued before bucket i is copied back.
+    def _encode_prepared_impl(self, canvases: tuple, mats: tuple,
+                              size_idx: np.ndarray, fetch: bool, encode):
+        """The bucket padding and two-in-flight pipeline shared by
+        encode_prepared (one RGB canvas) and encode_prepared_planar (luma
+        and chroma canvases); ``encode(canvas_tensors, mat_tensors, idx)``
+        queues one bucket's fused preprocess + encode on the device.
 
-        ``fetch=False`` returns a :class:`PendingEmbeddings` whose
-        ``resolve()`` does the device->host copy later."""
-        n = canvases.shape[0]
+        Two buckets in flight: bucket i+1's upload and encode are queued
+        before bucket i is copied back. ``fetch=False`` returns a
+        :class:`PendingEmbeddings` whose ``resolve()`` does the
+        device->host copy later."""
+        n = canvases[0].shape[0]
         if n == 0:
             empty = np.zeros((0, self.spec.embed_dim), np.float32)
             return empty if fetch else PendingEmbeddings([], 0, self)
         b = _bucket(n, max(self._index_batch, 1))
         if n < b or n % b:
             pad = -(-n // b) * b - n
-            canvases = np.concatenate(
-                [canvases, np.zeros((pad,) + canvases.shape[1:], canvases.dtype)]
+            canvases = tuple(
+                np.concatenate([c, np.zeros((pad,) + c.shape[1:], c.dtype)])
+                for c in canvases
             )
             size_idx = np.concatenate([size_idx, np.zeros(pad, size_idx.dtype)])
-        a_h_d, a_w_d = self._device_mats((a_h_u, a_w_u))
+        mats_d = self._device_mats(mats)
         out = []
         in_flight: list = []
         with self.timers.stage("prep_encode"):
-            for start in range(0, canvases.shape[0], b):
+            for start in range(0, canvases[0].shape[0], b):
                 sl = slice(start, start + b)
-                self.counters.add("upload_canvas_bytes", int(canvases[sl].nbytes))
-                c = torch.from_numpy(canvases[sl]).to(self.device)
+                batches = tuple(c[sl] for c in canvases)
+                self.counters.add(
+                    "upload_canvas_bytes", sum(int(c.nbytes) for c in batches)
+                )
+                cs = tuple(torch.from_numpy(c).to(self.device) for c in batches)
                 idx = torch.from_numpy(size_idx[sl]).to(self.device)
-                in_flight.append(self._prep_encode(c, a_h_d, a_w_d, idx))
+                in_flight.append(encode(cs, mats_d, idx))
                 if fetch and len(in_flight) >= 2:
                     out.append(in_flight.pop(0).cpu().numpy())
             if not fetch:
@@ -271,6 +297,33 @@ class SearchEngine:
         emb = np.concatenate(out, axis=0)[:n]
         self.counters.add("images_encoded", n)
         return emb
+
+    def encode_prepared(
+        self, canvases: np.ndarray, a_h_u: np.ndarray, a_w_u: np.ndarray,
+        size_idx: np.ndarray, fetch: bool = True,
+    ):
+        """Host-prepared batch (canvases + unique-size resample matrices +
+        per-image size index) -> (B, embed_dim) embeddings, padded to a
+        bucket size (``fetch=False``: see _encode_prepared_impl)."""
+        return self._encode_prepared_impl(
+            (canvases,), (a_h_u, a_w_u), size_idx, fetch,
+            lambda cs, mats, idx: self._prep_encode(cs[0], *mats, idx),
+        )
+
+    def encode_prepared_planar(
+        self, y_canvas: np.ndarray, c_canvas: np.ndarray,
+        a_h_y: np.ndarray, a_w_y: np.ndarray,
+        a_h_c: np.ndarray, a_w_c: np.ndarray, size_idx: np.ndarray,
+        fetch: bool = True,
+    ):
+        """prepare_batch_planar output -> (B, embed_dim) embeddings through
+        the fused planar preprocess; the same bucket padding and
+        ``fetch=False`` deferral as encode_prepared."""
+        return self._encode_prepared_impl(
+            (y_canvas, c_canvas), (a_h_y, a_w_y, a_h_c, a_w_c), size_idx,
+            fetch,
+            lambda cs, mats, idx: self._prep_encode_planar(*cs, *mats, idx),
+        )
 
     @staticmethod
     def _as_rgb(img) -> np.ndarray:
@@ -384,6 +437,7 @@ class SearchEngine:
                 decode_short_side=(
                     self.cfg.DECODE_SHORT_SIDE or self.spec.image_size
                 ),
+                planar=self.cfg.PLANAR_JPEG,
             )
         with self._cache_lock:
             self._index_cache.pop(_canon(folder), None)

@@ -61,6 +61,7 @@ def build_index(
     decode_short_side: int = 448,
     pipeline_encoder=None,
     incremental: bool = False,
+    planar: bool = True,
 ) -> int:
     """Index every image in ``folder``; returns number of rows written.
 
@@ -68,9 +69,15 @@ def build_index(
     float32 embeddings (the engine provides preprocess+encode fused on
     device). Returns 0 and writes nothing when the folder has no readable
     images (reference returns None -> HTTP 400, oldapp.py:82-83/1964).
-    ``fast_decode`` is kept for call compatibility: decode is always PIL
-    at full resolution here.
+    ``fast_decode`` enables the native DCT-scaled JPEG decoder, and
+    ``planar`` its planar 4:2:0 output (with a ``pipeline_encoder`` that
+    has ``encode_prepared_planar``). How each image was decoded is counted
+    (``preprocess.io``), logged, and added to the encoder's ``counters``
+    when it has them.
     """
+    from collections import Counter
+
+    decode_counts: Counter = Counter()
     paths = scan_folder(folder, extensions)
     done: set[str] = set()
     writer = None
@@ -98,7 +105,7 @@ def build_index(
     if pipeline_encoder is not None:
         _pipelined_build(
             paths, done, writer, pipeline_encoder, batch_size,
-            fast_decode, decode_short_side,
+            fast_decode, decode_short_side, planar, decode_counts,
         )
     else:
         pending_imgs: list = []
@@ -122,10 +129,12 @@ def build_index(
                     img_path,
                     min_short_side=decode_short_side if fast_decode else 0,
                     fast=fast_decode,
+                    counts=decode_counts,
                 )
                 stat = img_path.stat()
             except Exception as e:  # skip-and-continue (oldapp.py:79-80)
                 log.warning("Error processing %s: %s", img_path, e)
+                decode_counts["decode_failed"] += 1
                 continue
             pending_imgs.append(img)
             pending_paths.append(spath)
@@ -136,11 +145,16 @@ def build_index(
                 flush()
         flush()
 
+    counters = getattr(pipeline_encoder, "counters", None)
+    if counters is not None:
+        for route, count in decode_counts.items():
+            counters.add(route, count)
     if writer.count == 0:
         writer.abandon()  # no empty staging-dir litter (review finding)
         return 0
     writer.finalize()
-    log.info("indexed %d images in %s", writer.count, folder)
+    log.info("indexed %d images in %s (decode: %s)", writer.count, folder,
+             dict(sorted(decode_counts.items())))
     return writer.count
 
 
@@ -206,22 +220,36 @@ def _reuse_unchanged_rows(
 
 def _pipelined_build(
     paths, done, writer, encoder, batch_size, fast_decode, decode_short_side,
+    planar, decode_counts,
 ) -> None:
     """Overlapped host/device indexing pipeline.
 
-    A producer thread decodes + host-prepares batches (PIL decode releases
-    the GIL) while the device runs the fused preprocess+encode on the
-    previous batch — double buffering via a bounded queue. Every image
-    travels as RGB (the planar JPEG route needs the native decoder, which
-    this package does not have).
+    A producer thread decodes + host-prepares batches (the native batch
+    decoder and Pillow release the GIL) while the device runs the fused
+    preprocess+encode on the previous batch — double buffering via a
+    bounded queue.
+
+    With ``planar`` (and the native decoder built), JPEGs decode to
+    planar 4:2:0 YCbCr and ride the planar fused preprocess — half the
+    host->device canvas bytes. Non-JPEG / non-YCbCr images accumulate
+    into separate RGB batches; both kinds flow through the same queue,
+    tagged. ``decode_counts`` (a Counter) receives each image's decode
+    route from the producer thread.
     """
     import queue
     import threading
     from contextlib import nullcontext
 
-    from ..preprocess import prepare_batch
+    from ..preprocess import (
+        DEFAULT_MAX_SIDE,
+        planar_to_rgb_host,
+        prepare_batch,
+        prepare_batch_planar,
+    )
+    from ..preprocess.io import load_batch_planar
     from ..preprocess.pipeline import MAX_UNIQUE_SIZES
 
+    use_planar = planar and hasattr(encoder, "encode_prepared_planar")
     target = encoder.spec.image_size
     out: "queue.Queue" = queue.Queue(maxsize=3)
     cancelled = threading.Event()
@@ -247,21 +275,23 @@ def _pipelined_build(
         return timers.stage(stage) if timers is not None else nullcontext()
 
     def producer():
-        batch: list = []
-        bpaths: list = []
-        bmeta: list = []
-        sizes: set = set()
+        # one accumulator per batch kind: entries, paths, meta, size-set
+        accs = {"rgb": ([], [], [], set()), "planar": ([], [], [], set())}
 
-        def emit() -> bool:
-            nonlocal batch, bpaths, bmeta, sizes
+        def emit(kind) -> bool:
+            batch, bpaths, bmeta, _ = accs[kind]
             if not batch:
                 return True
             with timed("index_prepare"):
-                prepared = prepare_batch(batch, target=target)
-            ok = safe_put((prepared, bpaths, bmeta))
-            batch, bpaths, bmeta, sizes = [], [], [], set()
+                if kind == "planar":
+                    prepared = prepare_batch_planar(batch, target=target)
+                else:
+                    prepared = prepare_batch(batch, target=target)
+            ok = safe_put((kind, prepared, bpaths, bmeta))
+            accs[kind] = ([], [], [], set())
             return ok
 
+        load = load_batch_planar if use_planar else load_batch_rgb
         try:
             todo = [p for p in paths if str(p) not in done]
             for start in range(0, len(todo), batch_size):
@@ -269,10 +299,11 @@ def _pipelined_build(
                     return
                 chunk = todo[start : start + batch_size]
                 with timed("index_decode"):
-                    entries = load_batch_rgb(
+                    entries = load(
                         chunk,
                         min_short_side=decode_short_side if fast_decode else 0,
                         fast=fast_decode,
+                        counts=decode_counts,
                     )
                 for img_path, entry in zip(chunk, entries):
                     if entry is None:  # oldapp.py:79-80 semantics
@@ -283,13 +314,25 @@ def _pipelined_build(
                     except OSError as e:
                         log.warning("Error processing %s: %s", img_path, e)
                         continue
-                    hw = entry.shape[:2]
+                    if isinstance(entry, tuple):
+                        h, w = entry[0].shape
+                        if h > DEFAULT_MAX_SIDE or w > DEFAULT_MAX_SIDE:
+                            # beyond the canvas ladder: needs the RGB host
+                            # pre-shrink (rare — giant photo at 1/8 scale)
+                            entry = planar_to_rgb_host(*entry)
+                            kind, hw = "rgb", entry.shape[:2]
+                        else:
+                            kind, hw = "planar", (h, w)
+                    else:
+                        kind, hw = "rgb", entry.shape[:2]
+                    batch, bpaths, bmeta, sizes = accs[kind]
                     # flush BEFORE admitting a new distinct size past the
                     # cap (bounds the per-unique-size resample matrices;
                     # see preprocess.pipeline.MAX_UNIQUE_SIZES)
                     if hw not in sizes and len(sizes) >= MAX_UNIQUE_SIZES:
-                        if not emit():
+                        if not emit(kind):
                             return
+                        batch, bpaths, bmeta, sizes = accs[kind]
                     spath = str(img_path)
                     batch.append(entry)
                     sizes.add(hw)
@@ -299,10 +342,12 @@ def _pipelined_build(
                          "size": stat.st_size}
                     )
                     if len(batch) >= batch_size:
-                        if not emit():
+                        if not emit(kind):
                             return
-            if emit():
-                safe_put(None)
+            for kind in ("planar", "rgb"):
+                if not emit(kind):
+                    return
+            safe_put(None)
         except BaseException as e:  # surface producer crashes to the consumer
             safe_put(e)
 
@@ -322,14 +367,16 @@ def _pipelined_build(
                 break
             if isinstance(item, BaseException):
                 raise item
-            prepared, bpaths, bmeta = item
+            kind, prepared, bpaths, bmeta = item
+            encode = (encoder.encode_prepared_planar if kind == "planar"
+                      else encoder.encode_prepared)
             if deferred:
-                pend = encoder.encode_prepared(*prepared, fetch=False)
+                pend = encode(*prepared, fetch=False)
                 if pending is not None:
                     writer.append(pending[0].resolve(), pending[1], pending[2])
                 pending = (pend, bpaths, bmeta)
             else:
-                emb = encoder.encode_prepared(*prepared)
+                emb = encode(*prepared)
                 writer.append(np.asarray(emb, np.float32), bpaths, bmeta)
         if pending is not None:
             writer.append(pending[0].resolve(), pending[1], pending[2])

@@ -182,21 +182,34 @@ def _host_queries(queries, emb: np.ndarray) -> np.ndarray:
 
 
 def exact_search_host(emb: np.ndarray, query: np.ndarray, k: int):
-    """Exact top-k of one query over a host-resident (or mmap) shard;
-    same tie contract as the device paths."""
-    query = _host_queries(query, emb)
-    n = emb.shape[0]
+    """Exact top-k of one query over a host-resident (or mmap) shard
+    through the native threaded scanner, zero-copy: a bf16 shard (uint16
+    bits) is widened inside the scan loop, never copied to float32. Same
+    tie contract as the device paths. numpy only when the extension is
+    unavailable."""
+    from ..preprocess.io import get_native
+
+    query = np.ascontiguousarray(_host_queries(query, emb), np.float32)
+    n, d = emb.shape
     k = min(k, n)
     if k == 0:
         return np.zeros((0,), np.float32), np.zeros((0,), np.int64)
+    native = get_native()
+    if native is not None:
+        if emb.dtype == np.uint16:
+            scan, rows = native.topk_bf16, np.ascontiguousarray(emb)
+        else:
+            scan, rows = native.topk, np.ascontiguousarray(emb, np.float32)
+        scores, idx = scan(rows.data, n, d, query.data, k)
+        return np.asarray(scores, np.float32), np.asarray(idx, np.int64)
     scores = as_float32(emb) @ query
     order = np.lexsort((np.arange(n), -scores))[:k]
     return scores[order].astype(np.float32), order.astype(np.int64)
 
 
 def exact_search_host_reader(reader, query: np.ndarray, k: int):
-    """Host exact top-k straight over a reader's mmap shards, merged with
-    global row offsets."""
+    """Host exact top-k straight over a reader's mmap shards (each scanned
+    in place by ``exact_search_host``), merged with global row offsets."""
     k = min(k, reader.count)
     if k == 0:
         return np.zeros((0,), np.float32), np.zeros((0,), np.int64)

@@ -7,6 +7,11 @@ resize + center-crop + normalize. PyTorch counterpart of
   device: matrix gather + two resampling GEMMs + /255 + CLIP mean/std
           normalize, over the whole batch (device_preprocess_indexed)
 
+The planar twin (prepare_batch_planar, device_preprocess_planar_indexed)
+takes the native decoder's 4:2:0 planes: a luma canvas and a half-size
+Cb/Cr canvas, resampled onto one output grid, then BT.601 YCbCr -> RGB on
+the device.
+
 Weight matrices are zero-padded to the canvas dims (padded canvas pixels
 get zero weight so they never influence the output), and canvas shapes are
 drawn from a bounded ladder, as in the JAX package. Images larger than the
@@ -19,7 +24,11 @@ import numpy as np
 import torch
 
 from ..core.constants import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
-from .resize import clip_resize_crop_windowed, resample_matrix
+from .resize import (
+    clip_resize_crop_chroma_windowed,
+    clip_resize_crop_windowed,
+    resample_matrix,
+)
 
 DEFAULT_MAX_SIDE = 1024
 
@@ -109,17 +118,7 @@ def device_preprocess(canvases: torch.Tensor, a_h: torch.Tensor,
     (horizontal pass, round half to even + clamp to [0,255], vertical
     pass, round + clamp), as the JAX package does.
     """
-    x = canvases.float()
-    x = torch.einsum("bsw,bhwc->bhsc", a_w, x)
-    x = torch.round(x).clamp_(0.0, 255.0)
-    x = torch.einsum("bth,bhsc->btsc", a_h, x)
-    x = torch.round(x).clamp_(0.0, 255.0)
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=x.device) * 255.0
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=x.device) * 255.0
-    x = (x - mean) / std
-    if out_dtype is not None:
-        x = x.to(out_dtype)
-    return x
+    return _normalize(_resample2(canvases.float(), a_h, a_w), out_dtype)
 
 
 def device_preprocess_indexed(canvases: torch.Tensor, a_h_unique: torch.Tensor,
@@ -130,6 +129,65 @@ def device_preprocess_indexed(canvases: torch.Tensor, a_h_unique: torch.Tensor,
     crosses to the device, not one per image)."""
     idx = size_idx.long()
     return device_preprocess(canvases, a_h_unique[idx], a_w_unique[idx], out_dtype)
+
+
+def _normalize(rgb: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
+    """uint8-valued (..., 3) RGB -> CLIP mean/std normalized values."""
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=rgb.device) * 255.0
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=rgb.device) * 255.0
+    x = (rgb - mean) / std
+    return x if out_dtype is None else x.to(out_dtype)
+
+
+def _resample2(x: torch.Tensor, a_h: torch.Tensor, a_w: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) float -> (B, T, T, C): width pass, round + clamp,
+    height pass, round + clamp (PIL's uint8 pass order)."""
+    x = torch.einsum("bsw,bhwc->bhsc", a_w, x)
+    x = torch.round(x).clamp_(0.0, 255.0)
+    x = torch.einsum("bth,bhsc->btsc", a_h, x)
+    return torch.round(x).clamp_(0.0, 255.0)
+
+
+def device_preprocess_planar(y: torch.Tensor, c: torch.Tensor,
+                             a_h_y: torch.Tensor, a_w_y: torch.Tensor,
+                             a_h_c: torch.Tensor, a_w_c: torch.Tensor,
+                             out_dtype: torch.dtype | None = None):
+    """Fused planar-YCbCr resample + crop + color-convert + normalize on
+    the tensors' device — the device half of the planar JPEG path.
+
+    y: (B, Hp, Wp) uint8 luma canvases; c: (B, Hpc, Wpc, 2) uint8 Cb/Cr
+    canvases at about half resolution on their own pad ladder (the native
+    ``decode_jpeg_planar`` 4:2:0 layout: 1.5 B/px on the wire against
+    RGB's 3). a_h_y/a_w_y: (B, target, Hp/Wp) luma resize+crop weights;
+    a_h_c/a_w_c: (B, target, Hpc/Wpc) chroma weights on the SAME output
+    grid (``resize.clip_resize_crop_chroma_matrices`` folds the 2x chroma
+    upsample into the resample). The JFIF YCbCr->RGB conversion (BT.601
+    full range) is three FMAs per pixel, quantized like the uint8 RGB the
+    other path carries. Matches the RGB path within a couple of 8-bit
+    steps on natural images.
+    """
+    yf = _resample2(y.float()[..., None], a_h_y, a_w_y)[..., 0]  # (B, T, T)
+    cf = _resample2(c.float(), a_h_c, a_w_c)  # (B, T, T, 2)
+    cb = cf[..., 0] - 128.0
+    cr = cf[..., 1] - 128.0
+    rgb = torch.stack(
+        [yf + 1.402 * cr, yf - 0.344136 * cb - 0.714136 * cr, yf + 1.772 * cb],
+        dim=-1,
+    )
+    return _normalize(torch.round(rgb).clamp_(0.0, 255.0), out_dtype)
+
+
+def device_preprocess_planar_indexed(
+    y: torch.Tensor, c: torch.Tensor, a_h_y_u: torch.Tensor,
+    a_w_y_u: torch.Tensor, a_h_c_u: torch.Tensor, a_w_c_u: torch.Tensor,
+    size_idx: torch.Tensor, out_dtype: torch.dtype | None = None,
+):
+    """device_preprocess_planar with per-UNIQUE-size weight matrices
+    gathered on the device by ``size_idx``."""
+    idx = size_idx.long()
+    return device_preprocess_planar(
+        y, c, a_h_y_u[idx], a_w_y_u[idx], a_h_c_u[idx], a_w_c_u[idx], out_dtype
+    )
 
 
 # Cap on distinct source sizes per prepared batch. The per-unique-size
@@ -209,3 +267,98 @@ def prepare_batch(
         a_h[u] = a_h[0]
         a_w[u] = a_w[0]
     return canvases, a_h, a_w, size_idx
+
+
+def planar_to_rgb_host(
+    y: np.ndarray, cb: np.ndarray, cr: np.ndarray
+) -> np.ndarray:
+    """Host fallback: planar 4:2:0 -> (H, W, 3) uint8 RGB (NN chroma
+    upsample + BT.601 full-range). Used only for rare images the planar
+    device path can't take batched (e.g. larger than the canvas ladder's
+    max side, which need the RGB host pre-shrink)."""
+    h, w = y.shape
+    cbu = np.repeat(np.repeat(cb, 2, 0), 2, 1)[:h, :w].astype(np.float32) - 128
+    cru = np.repeat(np.repeat(cr, 2, 0), 2, 1)[:h, :w].astype(np.float32) - 128
+    yf = y.astype(np.float32)
+    rgb = np.stack(
+        [
+            yf + 1.402 * cru,
+            yf - 0.344136 * cbu - 0.714136 * cru,
+            yf + 1.772 * cbu,
+        ],
+        axis=-1,
+    )
+    return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
+
+
+def prepare_batch_planar(
+    planes: list[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    target: int = 224,
+    pad_multiple: int = 64,
+):
+    """Batch of (y, cb, cr) planar 4:2:0 arrays -> device-ready tensors.
+
+    Returns (y_canvas (B, Hp, Wp) u8, c_canvas (B, Hpc, Wpc, 2) u8,
+    a_h_y (U, target, Hp) f32, a_w_y (U, target, Wp) f32,
+    a_h_c (U, target, Hpc) f32, a_w_c (U, target, Wpc) f32,
+    size_idx (B,) int32) — the planar twin of prepare_batch, drawing every
+    shape from bounded ladders (chroma dims ride their own half-step
+    ladder). Callers pre-route images above the canvas ladder
+    (``DEFAULT_MAX_SIDE``) to the RGB path (planar_to_rgb_host); this
+    function requires them gone.
+    """
+    for y, cb, cr in planes:
+        h, w = y.shape
+        want = ((h + 1) // 2, (w + 1) // 2)
+        if cb.shape != want or cr.shape != want:
+            raise ValueError(
+                f"chroma {cb.shape} does not match 4:2:0 of luma {(h, w)}"
+            )
+    n = len(planes)
+    # Support-window packing (see prepare_batch): luma and chroma each get
+    # their own window on their own grid, so the chroma canvas rides its
+    # own (finer-stepped) ladder instead of being pinned to half the luma
+    # canvas.
+    sizes: dict[tuple[int, int], int] = {}
+    size_idx = np.zeros(n, np.int32)
+    for i, (y, cb, cr) in enumerate(planes):
+        size_idx[i] = sizes.setdefault(y.shape, len(sizes))
+    win: dict[tuple[int, int], tuple] = {}
+    for h, w in sizes:
+        mh, mw, y0, x0 = clip_resize_crop_windowed(h, w, target)
+        ch, cw = (h + 1) // 2, (w + 1) // 2
+        mhc, mwc, cy0, cx0 = clip_resize_crop_chroma_windowed(
+            h, w, ch, cw, target
+        )
+        win[(h, w)] = (mh, mw, y0, x0, mhc, mwc, cy0, cx0)
+    hp = _pad_dim(max(v[0].shape[1] for v in win.values()), pad_multiple)
+    wp = _pad_dim(max(v[1].shape[1] for v in win.values()), pad_multiple)
+    c_step = max(pad_multiple // 2, 16)
+    chp = _pad_dim(max(v[4].shape[1] for v in win.values()), c_step)
+    cwp = _pad_dim(max(v[5].shape[1] for v in win.values()), c_step)
+    y_canvas = np.zeros((n, hp, wp), np.uint8)
+    c_canvas = np.zeros((n, chp, cwp, 2), np.uint8)
+    for i, (y, cb, cr) in enumerate(planes):
+        mh, mw, y0, x0, mhc, mwc, cy0, cx0 = win[y.shape]
+        bh, bw = mh.shape[1], mw.shape[1]
+        y_canvas[i, :bh, :bw] = y[y0 : y0 + bh, x0 : x0 + bw]
+        cbh, cbw = mhc.shape[1], mwc.shape[1]
+        c_canvas[i, :cbh, :cbw, 0] = cb[cy0 : cy0 + cbh, cx0 : cx0 + cbw]
+        c_canvas[i, :cbh, :cbw, 1] = cr[cy0 : cy0 + cbh, cx0 : cx0 + cbw]
+    u_pad = _next_pow2(len(sizes))
+    a_h_y = np.zeros((u_pad, target, hp), np.float32)
+    a_w_y = np.zeros((u_pad, target, wp), np.float32)
+    a_h_c = np.zeros((u_pad, target, chp), np.float32)
+    a_w_c = np.zeros((u_pad, target, cwp), np.float32)
+    for hw, u in sizes.items():
+        mh, mw, _, _, mhc, mwc, _, _ = win[hw]
+        a_h_y[u, :, : mh.shape[1]] = mh
+        a_w_y[u, :, : mw.shape[1]] = mw
+        a_h_c[u, :, : mhc.shape[1]] = mhc
+        a_w_c[u, :, : mwc.shape[1]] = mwc
+    for u in range(len(sizes), u_pad):  # pad rows: duplicate row 0
+        a_h_y[u] = a_h_y[0]
+        a_w_y[u] = a_w_y[0]
+        a_h_c[u] = a_h_c[0]
+        a_w_c[u] = a_w_c[0]
+    return y_canvas, c_canvas, a_h_y, a_w_y, a_h_c, a_w_c, size_idx

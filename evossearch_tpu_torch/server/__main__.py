@@ -13,13 +13,13 @@ from .app import create_app
 from .web import serve
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(prog="evossearch-tpu-torch")
     parser.add_argument("--host", default=None)
     parser.add_argument("--port", type=int, default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the first GPU)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     if args.host:
         config.HOST = args.host
     if args.port:

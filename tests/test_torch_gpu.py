@@ -318,3 +318,113 @@ def test_stream_kernel_equals_plain(dtype):
     # fewer rows than k: padded slots read (NEG_INF, -1)
     s, i = topk.fused_topk(e[:40], q, 48)
     assert torch.equal(i[40:].cpu(), torch.full((8,), -1))
+
+
+def _planes(seed, sizes):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+             rng.integers(0, 256, ((h + 1) // 2, (w + 1) // 2), dtype=np.uint8),
+             rng.integers(0, 256, ((h + 1) // 2, (w + 1) // 2), dtype=np.uint8))
+            for h, w in sizes]
+
+
+@pytest.mark.gpu
+def test_planar_device_preprocess_on_gpu_equals_cpu():
+    """Within 1e-4 in normalized units but for round-half flips of the two
+    devices' summation orders (at most 2 8-bit steps, on at most 0.1% of
+    values)."""
+    _need_gpu()
+    from evossearch_tpu_torch.preprocess import (
+        device_preprocess_planar_indexed,
+        prepare_batch_planar,
+    )
+
+    prepared = prepare_batch_planar(
+        _planes(7, [(240, 320), (101, 133), (480, 360), (1000, 750)]), 224)
+    cpu = device_preprocess_planar_indexed(*(torch.from_numpy(a) for a in prepared))
+    gpu = device_preprocess_planar_indexed(
+        *(torch.from_numpy(a).cuda() for a in prepared)).cpu()
+    diff = (gpu - cpu).abs()
+    assert gpu.shape == (4, 224, 224, 3)
+    assert (diff > 1e-4).float().mean() <= 1e-3
+    assert diff.max() <= 2 / (255 * 0.26130258) + 1e-4
+
+
+def openai_state_dict(spec, seed: int = 0, dtype=torch.float16) -> dict:
+    """A seeded state dict in the OpenAI release layout for a ViT ``spec``
+    (fp16 tensors, as the release files hold them)."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def t(key, *shape, scale=None, base=0.0):
+        scale = shape[-1] ** -0.5 if scale is None else scale
+        sd[key] = (base + scale * torch.randn(*shape, generator=gen)).to(dtype)
+
+    def tower(prefix, width, layers):
+        for i in range(layers):
+            p = f"{prefix}.resblocks.{i}"
+            for ln in ("ln_1", "ln_2"):
+                t(f"{p}.{ln}.weight", width, scale=0.1, base=1.0)
+                t(f"{p}.{ln}.bias", width, scale=0.1)
+            t(f"{p}.attn.in_proj_weight", 3 * width, width)
+            t(f"{p}.attn.in_proj_bias", 3 * width, scale=0.02)
+            t(f"{p}.attn.out_proj.weight", width, width)
+            t(f"{p}.attn.out_proj.bias", width, scale=0.02)
+            t(f"{p}.mlp.c_fc.weight", 4 * width, width)
+            t(f"{p}.mlp.c_fc.bias", 4 * width, scale=0.02)
+            t(f"{p}.mlp.c_proj.weight", width, 4 * width)
+            t(f"{p}.mlp.c_proj.bias", width, scale=0.02)
+
+    vw, tw, p = spec.vision_width, spec.text_width, spec.patch_size
+    grid = spec.image_size // p
+    t("visual.conv1.weight", vw, 3, p, p, scale=(3 * p * p) ** -0.5)
+    t("visual.class_embedding", vw)
+    t("visual.positional_embedding", grid * grid + 1, vw)
+    for ln in ("visual.ln_pre", "visual.ln_post", "ln_final"):
+        width = tw if ln == "ln_final" else vw
+        t(f"{ln}.weight", width, scale=0.1, base=1.0)
+        t(f"{ln}.bias", width, scale=0.1)
+    tower("visual.transformer", vw, spec.vision_layers)
+    t("visual.proj", vw, spec.embed_dim, scale=vw ** -0.5)
+    t("token_embedding.weight", spec.vocab_size, tw, scale=0.02)
+    t("positional_embedding", spec.context_length, tw, scale=0.01)
+    tower("transformer", tw, spec.text_layers)
+    t("text_projection", tw, spec.embed_dim, scale=tw ** -0.5)
+    sd["logit_scale"] = torch.tensor(4.6052, dtype=dtype)
+    return sd
+
+
+@pytest.mark.gpu
+def test_openai_checkpoint_loads_on_gpu(tmp_path):
+    """An engine on the card started from an OpenAI-layout ``.pt`` runs
+    the inferred spec and matches the same file on the CPU (f32 compute)."""
+    _need_gpu()
+    from evossearch_tpu_torch.core import CLIPModelSpec, Config
+    from evossearch_tpu_torch.engine import SearchEngine
+
+    spec = CLIPModelSpec(
+        name="custom-p16", image_size=64, patch_size=16, vision_width=128,
+        vision_layers=2, vision_heads=2, text_width=64, text_layers=2,
+        text_heads=1, vocab_size=49408, context_length=77, embed_dim=32,
+    )
+    path = tmp_path / "tiny.pt"
+    torch.save(openai_state_dict(spec), path)
+    engines = []
+    for device in ("cuda", "cpu"):
+        cfg = Config(env_path=tmp_path / "missing.env")
+        cfg.CHECKPOINT_PATH, cfg.COMPUTE_DTYPE = str(path), "float32"
+        engines.append(SearchEngine(cfg=cfg, device=device))
+    gpu, cpu = engines
+    try:
+        assert gpu.spec == cpu.spec == spec
+        assert next(gpu.params.parameters()).is_cuda
+        rng = np.random.default_rng(8)
+        images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+                  for hw in ((64, 64), (90, 120))]
+        np.testing.assert_allclose(gpu.encode_images(images), cpu.encode_images(images),
+                                   atol=1e-4)
+        np.testing.assert_allclose(gpu.encode_text("a red car"), cpu.encode_text("a red car"),
+                                   atol=1e-4)
+    finally:
+        for eng in engines:
+            eng.close()

@@ -1,6 +1,8 @@
 """The port stands alone: no module of evossearch_tpu_torch, nor
 chip_smoke.py, imports JAX, the JAX package, or the third-party modules
-the GPU machine is not known to have (``regex``, ``ml_dtypes``)."""
+the GPU machine is not known to have (``regex``, ``ml_dtypes``), and none
+names the JAX package's native source directory or its built extension
+(the port builds its own copy of the C++ source)."""
 
 import ast
 from pathlib import Path
@@ -38,3 +40,10 @@ def test_no_forbidden_imports(path):
         if name.split(".")[0] in FORBIDDEN
     }
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_native_paths(path):
+    text = path.read_text()
+    for needle in ("native/", "evossearch_tpu/_native", "build.sh"):
+        assert needle not in text, f"{path.relative_to(ROOT)} names {needle!r}"

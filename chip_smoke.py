@@ -9,7 +9,7 @@ libjpeg decoders where the machine has the libjpeg headers), holds each
 kernel against its plain PyTorch
 version and a dense oracle (a stable sort written here), times them (and
 checks and times the dense path's selection, stable_topk, against that
-sort and torch.topk), then drives five paths, each with the launch
+sort and torch.topk), then drives six paths, each with the launch
 counts set to 0 just before it and read just after (and last checks the
 block and tree kernels at 67,110,913 rows of d = 128, f32 and bf16, past
 the 67,106,816 rows the block kernel's grid once capped it at):
@@ -50,13 +50,39 @@ store), as users start the port:
     disk), so the engine's routing sends its text and embedding searches
     to the SQ8 tier and the int8 bound-sweep kernel; one search is then
     split into its stages (device half, copy back, row gather, rerank and
-    certificate).
+    certificate);
+
+then, before the last check, the slices that serve other settings:
+
+  * ``ivf``: EVOSSEARCH_INDEX_KIND=ivf over a clustered bf16 store of
+    1,048,576 rows (1,024 random unit centres, Gaussian noise of sigma
+    1.2/sqrt(d)): the build through an engine, split into k-means,
+    assignment, layout and calibration; recall@48 of the calibrated
+    nprobe against the exact path on 64 noisy queries; the full probe
+    against exact; IVF against exact (``best``) at Q = 1 and 48, CUDA
+    events; the sidecar's save and a second engine's reload without
+    retraining; a third engine under a budget below 3x the corpus that
+    probes the sidecar on the host, beside the native exact host scan;
+  * ``resnet``: RN50 at its published full width from a seeded
+    OpenAI-layout fp16 ``.pt`` through load_checkpoint into the app: the
+    image tower's time per 128-image batch, the card's f32 (cuDNN's TF32
+    off inside the forward) and bf16 embeddings against the CPU's f32,
+    and, counted like the paths above, /index, /search and
+    /search_by_image on 64 photos and the block, tree and SQ8 kernels at
+    the tower's d = 1024 through the engine;
+  * ``kernel_check_d1024``: B1 and B2 bit for bit against their plain
+    versions at d = 1024 (262,144 and 1,048,576 rows, Q and every query
+    bucket), B3 at 1,000,003 and 262,144 rows, Q and every query bucket,
+    and the tensor cores' accumulation error.
 
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. In the closing
 ``kernels`` line, ``sq8_variant`` reports the bf16_struct variant (both
 variants have a ``kernel_check`` line), and ``tree_f32``, ``block_f32``
-and ``stream_f32`` the kernels' f32 paths. The last line is
+and ``stream_f32`` the kernels' f32 paths; ``launches`` and
+``launches_rn50`` count each kernel's launches by corpus dtype
+(``ops.topk.DTYPE_LAUNCHES``) on the main path and on the resnet phase's
+path. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -93,6 +119,13 @@ N_SQ8_TAIL = 1_000_003  # a partial last SQ8 tile, n % 4 != 0 (radd unaligned)
 N_STREAM = 1 << 20  # the stream kernel checks
 SQ8_BUDGET_MB = 1536  # corpus 2 GiB over it, sidecar 1.02 GiB within it
 SQ8_FETCH = 512       # the tier's default fetch (EVOSSEARCH_SQ8_FETCH)
+SEED = 0              # the seed of the ivf and resnet phases' data and weights
+N_IVF = 1 << 20       # the ivf phase's clustered store
+IVF_CENTRES = 1024    # its cluster centres
+IVF_QUERIES = 64      # its noisy queries (recall@48)
+IVF_BUDGET_MB = 2048  # the corpus (1 GiB) within it, the IVF (3x) over it
+RN50_STORE = 1 << 18  # the resnet phase's d = 1024 store: block at k=48, tree at k=12
+RN50_SQ8_BUDGET_MB = 384  # that store (512 MiB) over it, its sidecar (258 MiB) within
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 # dense bf16 tensor cores, f32 FMA on the CUDA cores, TF32 tensor cores
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
@@ -135,17 +168,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def exact_inputs(n: int, dtype, gen: torch.Generator):
+def exact_inputs(n: int, dtype, gen: torch.Generator, d: int = D):
     """Rows and 128 queries of small integers over 16: every dot is exact
     in float32 in any summation order, and equal scores tie for real."""
-    emb = torch.randint(-4, 5, (n, D), generator=gen, device="cuda") / 16.0
-    q = torch.randint(-4, 5, (max(QUERY_BUCKETS), D), generator=gen,
+    emb = torch.randint(-4, 5, (n, d), generator=gen, device="cuda") / 16.0
+    q = torch.randint(-4, 5, (max(QUERY_BUCKETS), d), generator=gen,
                       device="cuda") / 16.0
     return emb.to(dtype).contiguous(), q.float()
 
 
-def unit_rows(n: int, gen: torch.Generator, device="cuda") -> torch.Tensor:
-    x = torch.randn(n, D, generator=gen, device=device)
+def unit_rows(n: int, gen: torch.Generator, device="cuda", d: int = D) -> torch.Tensor:
+    x = torch.randn(n, d, generator=gen, device=device)
     return x / torch.linalg.norm(x, dim=1, keepdim=True)
 
 
@@ -371,14 +404,14 @@ def block_grid_check(topk) -> list[dict]:
     return rows
 
 
-def exact_sq8_inputs(n: int, gen: torch.Generator):
+def exact_sq8_inputs(n: int, gen: torch.Generator, d: int = D):
     """int8 rows, power-of-two scales, queries of small integers over 16:
     every bound's dot is exact in float32, and equal bounds tie for real."""
-    e8 = torch.randint(-127, 128, (n, D), generator=gen, device="cuda",
+    e8 = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
                        dtype=torch.int8)
     scale = 2.0 ** -torch.randint(5, 10, (n,), generator=gen, device="cuda").float()
     radd = torch.rand(n, generator=gen, device="cuda") * 1e-2
-    q = torch.randint(-4, 5, (max(QUERY_BUCKETS), D), generator=gen,
+    q = torch.randint(-4, 5, (max(QUERY_BUCKETS), d), generator=gen,
                       device="cuda") / 16.0
     return e8, torch.stack([scale, radd]).contiguous(), q.float()
 
@@ -554,7 +587,7 @@ def sq8_variant_checks(topk) -> dict:
     return out_rows
 
 
-def accumulation_check(topk, gen: torch.Generator) -> dict:
+def accumulation_check(topk, gen: torch.Generator, d: int = D) -> dict:
     """The tensor cores' accumulation against the model the SQ8 certificate
     relies on (ops/csrc/topk_tc.cuh): int8_noscale's emitted raw dots
     (cand_s at cand_i) over cancellation-heavy rows (int8 values of
@@ -563,11 +596,11 @@ def accumulation_check(topk, gen: torch.Generator) -> dict:
     the same rows. The worst error, in units of d*2^-24*sum|e8*q~|, must be
     at most 2 (a truncating accumulation's bound)."""
     n, tile = N_SQ8_TAIL, topk.SQ8_TILE_ROWS
-    sign = (1 - 2 * (torch.arange(D, device="cuda") % 2)).to(torch.int16)
-    e8 = (torch.randint(64, 128, (n, D), generator=gen, device="cuda",
+    sign = (1 - 2 * (torch.arange(d, device="cuda") % 2)).to(torch.int16)
+    e8 = (torch.randint(64, 128, (n, d), generator=gen, device="cuda",
                         dtype=torch.int16) * sign).to(torch.int8)
-    mag = torch.rand(Q, D, generator=gen, device="cuda") + 0.5
-    q = mag * 2.0 ** -torch.randint(0, 14, (Q, D), generator=gen, device="cuda").float()
+    mag = torch.rand(Q, d, generator=gen, device="cuda") + 0.5
+    q = mag * 2.0 ** -torch.randint(0, 14, (Q, d), generator=gen, device="cuda").float()
     q = (q / torch.linalg.norm(q, dim=1, keepdim=True)).bfloat16().float()
     cand_s, cand_i, _ = topk.sq8_variant_candidates(e8, None, q, None, "int8_noscale", tile)
     worst = 0.0
@@ -577,8 +610,9 @@ def accumulation_check(topk, gen: torch.Generator) -> dict:
         rows = e8[cand_i[j][live].long()].double()
         p = rows * qd[j]
         err = (cand_s[j][live].double() - p.sum(1)).abs()
-        worst = max(worst, float((err / (D * 2.0 ** -24 * p.abs().sum(1))).max()))
-    check(worst <= 2, f"tensor-core accumulation error within 2*d*2^-24*sum|p| ({worst})")
+        worst = max(worst, float((err / (d * 2.0 ** -24 * p.abs().sum(1))).max()))
+    check(worst <= 2, f"tensor-core accumulation error within 2*d*2^-24*sum|p| at "
+          f"d = {d} ({worst})")
     del e8, cand_s, cand_i
     return {"accumulation_err_ratio_max": worst, "accumulation_rows": n}
 
@@ -615,16 +649,23 @@ def f32_accumulation_check(topk) -> dict:
     return {"f32_err_ratio_max": worst, "f32_err_rows": n}
 
 
+def zero_launches(topk) -> None:
+    """Set every launch count (by kernel, and by kernel and corpus dtype)
+    to 0."""
+    for counts in (topk.LAUNCHES, topk.DTYPE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
 def sq8_split_path(topk) -> int:
     """The SQ8 time split (scripts/exp_sq8_perf.run) with the launch counts
     set to 0 just before and read just after; returns the E1 variants'
     launches on this path."""
     from evossearch_tpu_torch.scripts import exp_sq8_perf
 
-    for name in topk.LAUNCHES:
-        topk.LAUNCHES[name] = 0
+    zero_launches(topk)
     rows = exp_sq8_perf.run()
-    launches = dict(topk.LAUNCHES)
+    launches = dict(topk.DTYPE_LAUNCHES)
     check(launches["sq8_variant"] > 0, "the sq8_variant kernel ran on the sq8_split path")
     for row in rows:
         check(all(math.isfinite(v) and v > 0 for k, v in row.items()
@@ -646,12 +687,11 @@ def f32_search_path(topk, search) -> dict:
     corpora = {n: unit_rows(n, gen) for n in (N_BLOCK, N_TREE)}
     queries = unit_rows(Q, gen).cpu().numpy()
     k = 48
-    for name in topk.LAUNCHES:
-        topk.LAUNCHES[name] = 0
+    zero_launches(topk)
     out = {n: search.best_exact_search_batch(emb, queries, k) for n, emb in corpora.items()}
     torch.cuda.synchronize()
-    launches = dict(topk.LAUNCHES)
-    check(launches["block"] > 0 and launches["tree"] > 0,
+    launches = dict(topk.DTYPE_LAUNCHES)
+    check(launches["block_f32"] > 0 and launches["tree_f32"] > 0,
           f"the block and tree kernels ran on their f32 path ({launches})")
     for n, emb in corpora.items():
         s, i = out[n]
@@ -812,16 +852,20 @@ def write_jpegs(folder: Path, count: int) -> list[Path]:
     return paths
 
 
-def write_store(folder: Path, n: int, gen: torch.Generator) -> None:
-    """A bf16 ViT-B/32 store of ``n`` seeded unit rows."""
+def write_store(folder: Path, n: int, gen: torch.Generator, d: int = D,
+                model: str = "ViT-B/32", rows=None) -> None:
+    """A bf16 store of ``n`` seeded rows of width ``d``: ``rows(m)`` makes
+    each chunk on the card (default: unit rows), which rounds it to bf16
+    there and hands the writer its bit patterns."""
     from evossearch_tpu_torch.index import IndexWriter
 
+    rows = rows or (lambda m: unit_rows(m, gen, d=d))
     folder.mkdir(parents=True, exist_ok=True)
-    w = IndexWriter.create(folder, model="ViT-B/32", dim=D, dtype_name="bfloat16")
+    w = IndexWriter.create(folder, model=model, dim=d, dtype_name="bfloat16")
     chunk = 1 << 18
     for start in range(0, n, chunk):
         m = min(chunk, n - start)
-        emb = unit_rows(m, gen).cpu().numpy()
+        emb = rows(m).to(torch.bfloat16).view(torch.int16).cpu().numpy().view(np.uint16)
         paths = [str(folder / f"row_{start + j}.jpg") for j in range(m)]
         meta = [{"path": p, "mtime": 0.0, "size": 0} for p in paths]
         w.append(emb, paths, meta)
@@ -861,13 +905,12 @@ def library_path(topk, engine, folder: Path) -> dict:
     q = torch.as_tensor(engine.encode_text("a photo of a horse"), device="cuda")
     counted = {}
     for key, emb in (("stream", emb_d), ("stream_f32", emb_d.float())):
-        for name in topk.LAUNCHES:
-            topk.LAUNCHES[name] = 0
+        zero_launches(topk)
         out = {k: fused_topk(emb, q, k) for k in (12, 48)}
         torch.cuda.synchronize()
-        launches = dict(topk.LAUNCHES)
-        check(launches["stream"] > 0, f"the stream kernel ran on its path ({key})")
-        counted[key] = launches["stream"]
+        launches = dict(topk.DTYPE_LAUNCHES)
+        check(launches[key] > 0, f"the stream kernel ran on its path ({key})")
+        counted[key] = launches[key]
         for k, (s, i) in out.items():
             os_, oi = oracle_topk((emb.float() @ (q / torch.linalg.norm(q)))[None], k)
             check(same_ranking(s.cpu()[None], i.cpu()[None], os_.cpu(), oi.cpu()),
@@ -936,7 +979,6 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
     which the host batcher sends as one batch), with the launch counts set
     to 0 just before and read just after. The first search builds the
     sidecar inline; a second engine then loads it without rebuilding."""
-    from evossearch_tpu_torch.core import Config
     from evossearch_tpu_torch.engine import SearchEngine, _canon
     from evossearch_tpu_torch.index.search import exact_search_host_reader_batch
     from evossearch_tpu_torch.index.store import IndexReader
@@ -945,12 +987,8 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
     t0 = time.perf_counter()
     write_store(folder, N_SQ8, gen)
     store_s = time.perf_counter() - t0
-    os.environ["EVOSSEARCH_HBM_BUDGET_MB"] = str(SQ8_BUDGET_MB)
-    os.environ["EVOSSEARCH_SQ8_SYNC_ROWS"] = str(2 * N_SQ8)
-    try:
-        cfg = Config(env_path=work / "missing.env")
-    finally:
-        del os.environ["EVOSSEARCH_HBM_BUDGET_MB"], os.environ["EVOSSEARCH_SQ8_SYNC_ROWS"]
+    cfg = config_with(work, EVOSSEARCH_HBM_BUDGET_MB=str(SQ8_BUDGET_MB),
+                      EVOSSEARCH_SQ8_SYNC_ROWS=str(2 * N_SQ8))
     emit({"phase": "over_budget_setup", "n": N_SQ8, "store_dtype": "bfloat16",
           "store_written_s": store_s, "corpus_bytes": N_SQ8 * D * 2,
           "sidecar_bytes": N_SQ8 * (D + 8), "budget_mb": cfg.HBM_BUDGET_MB,
@@ -966,8 +1004,7 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
     embs /= np.linalg.norm(embs, axis=1, keepdims=True)
     sidecar = folder / ".clip_index" / "sq8.json"
 
-    for name in topk.LAUNCHES:
-        topk.LAUNCHES[name] = 0
+    zero_launches(topk)
     t_wall = time.time()
     t0 = time.perf_counter()
     first = eng.search_text(str(folder), text, 12)
@@ -995,7 +1032,7 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
         t.join()
     concurrent_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    launches = dict(topk.LAUNCHES)
+    launches = dict(topk.DTYPE_LAUNCHES)
     snap = eng.counters.snapshot()
     check(launches["sq8"] > 0, "the sq8 kernel ran on the over-budget path")
     check(snap.get("sq8_queries", 0) > 0, "the SQ8 tier served the over-budget folder")
@@ -1043,12 +1080,13 @@ def over_budget_path(topk, engine, work: Path, gen: torch.Generator) -> dict:
     return launches
 
 
-def openai_state_dict(spec, seed: int) -> dict:
+def openai_state_dict(spec, seed: int, visual: bool = True) -> dict:
     """A seeded state dict in the OpenAI release layout for a ViT ``spec``
     (clip/model.py's key names and shapes: ``visual.conv1.weight`` (width,
     3, patch, patch), fused ``attn.in_proj_weight`` (3 width, width), ...)
     with fp16 tensors, as the release files hold them; standard deviations
-    of OpenAI's init scheme."""
+    of OpenAI's init scheme. ``visual=False``: the text tower's keys
+    alone (any spec)."""
     gen = torch.Generator().manual_seed(seed)
     sd = {}
 
@@ -1072,16 +1110,21 @@ def openai_state_dict(spec, seed: int) -> dict:
               std=width ** -0.5 * (2 * layers) ** -0.5)
             t(f"{p}.mlp.c_proj.bias", width, std=0.02)
 
-    vw, tw, patch = spec.vision_width, spec.text_width, spec.patch_size
-    grid = spec.image_size // patch
-    t("visual.conv1.weight", vw, 3, patch, patch, std=(3 * patch * patch) ** -0.5)
-    t("visual.class_embedding", vw, std=vw ** -0.5)
-    t("visual.positional_embedding", grid * grid + 1, vw, std=vw ** -0.5)
-    for ln, width in (("visual.ln_pre", vw), ("visual.ln_post", vw), ("ln_final", tw)):
+    tw = spec.text_width
+    lns = [("ln_final", tw)]
+    if visual:
+        vw, patch = spec.vision_width, spec.patch_size
+        grid = spec.image_size // patch
+        t("visual.conv1.weight", vw, 3, patch, patch, std=(3 * patch * patch) ** -0.5)
+        t("visual.class_embedding", vw, std=vw ** -0.5)
+        t("visual.positional_embedding", grid * grid + 1, vw, std=vw ** -0.5)
+        lns = [("visual.ln_pre", vw), ("visual.ln_post", vw)] + lns
+    for ln, width in lns:
         t(f"{ln}.weight", width, std=0.02, base=1.0)
         t(f"{ln}.bias", width, std=0.02)
-    tower("visual.transformer", vw, spec.vision_layers)
-    t("visual.proj", vw, spec.embed_dim, std=vw ** -0.5)
+    if visual:
+        tower("visual.transformer", vw, spec.vision_layers)
+        t("visual.proj", vw, spec.embed_dim, std=vw ** -0.5)
     t("token_embedding.weight", spec.vocab_size, tw, std=0.02)
     t("positional_embedding", spec.context_length, tw, std=0.01)
     tower("transformer", tw, spec.text_layers)
@@ -1236,6 +1279,28 @@ def planar_device(engine) -> dict:
     return row
 
 
+def index_run(client, engine, imgs: Path, mode: str) -> dict:
+    """One /index of the 64 photos, split into decode, host prepare and
+    encode (upload, device preprocess, image tower and the copy back),
+    host clock, from the engine's stage timers, with the decode routes
+    counted."""
+    stages = ("index_decode", "index_prepare", "prep_encode", "prep_encode_fetch")
+    before_t = dict(engine.timers.totals)
+    before_c = engine.counters.snapshot()
+    t0 = time.perf_counter()
+    r = client.post("/index", json_body={"folder": str(imgs)})
+    wall = time.perf_counter() - t0
+    check(r.status_code == 200 and r.json == {"success": True, "count": 64},
+          f"/index ({mode}) indexed 64 images ({r.status_code} {r.json})")
+    spent = {s: engine.timers.totals.get(s, 0.0) - before_t.get(s, 0.0) for s in stages}
+    counts = {k: v - before_c.get(k, 0) for k, v in engine.counters.snapshot().items()
+              if k.startswith("decode_") and v - before_c.get(k, 0)}
+    return {"index_s": wall, "index_images_per_s": 64 / wall,
+            "decode_s": spent["index_decode"], "prepare_s": spent["index_prepare"],
+            "encode_s": spent["prep_encode"] + spent["prep_encode_fetch"],
+            "decode_counts": counts}
+
+
 def index_twice(client, engine, imgs: Path) -> dict:
     """/index of the photo folder with FAST_DECODE=0 PLANAR_JPEG=0 (Pillow
     at full size, RGB canvases), then with the defaults, in turns, twice
@@ -1248,26 +1313,11 @@ def index_twice(client, engine, imgs: Path) -> dict:
     from evossearch_tpu_torch.preprocess.io import has_native_decode
 
     cfg = engine.cfg
-    stages = ("index_decode", "index_prepare", "prep_encode", "prep_encode_fetch")
     runs: dict = {"pillow_rgb": [], "defaults": []}
     for mode, fast in (("pillow_rgb", False), ("defaults", True)) * 2:
         cfg.FAST_DECODE = cfg.PLANAR_JPEG = fast
         shutil.rmtree(imgs / cfg.INDEX_FOLDER_NAME, ignore_errors=True)
-        before_t = dict(engine.timers.totals)
-        before_c = engine.counters.snapshot()
-        t0 = time.perf_counter()
-        r = client.post("/index", json_body={"folder": str(imgs)})
-        wall = time.perf_counter() - t0
-        check(r.status_code == 200 and r.json == {"success": True, "count": 64},
-              f"/index ({mode}) indexed 64 images ({r.status_code} {r.json})")
-        spent = {s: engine.timers.totals.get(s, 0.0) - before_t.get(s, 0.0) for s in stages}
-        counts = {k: v - before_c.get(k, 0) for k, v in engine.counters.snapshot().items()
-                  if k.startswith("decode_") and v - before_c.get(k, 0)}
-        runs[mode].append({
-            "index_s": wall, "index_images_per_s": 64 / wall,
-            "decode_s": spent["index_decode"], "prepare_s": spent["index_prepare"],
-            "encode_s": spent["prep_encode"] + spent["prep_encode_fetch"],
-            "decode_counts": counts})
+        runs[mode].append(index_run(client, engine, imgs, mode))
     cfg.FAST_DECODE = cfg.PLANAR_JPEG = True
     native = has_native_decode()
     want = "decode_native_planar" if native else "decode_pillow"
@@ -1383,8 +1433,7 @@ def run_main_path(topk, search, work: Path) -> dict:
     planar_device(engine)
     client = TestClient(app)
 
-    for k in topk.LAUNCHES:
-        topk.LAUNCHES[k] = 0
+    zero_launches(topk)
     # -- phase 4: the HTTP routes --
     index_runs = index_twice(client, engine, imgs)
     search_ms = []
@@ -1425,7 +1474,7 @@ def run_main_path(topk, search, work: Path) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         check(out is not None, f"{folder.name} is indexed")
         results[(folder.name, k)] = (out, text, ms)
-    launches = dict(topk.LAUNCHES)
+    launches = dict(topk.DTYPE_LAUNCHES)
     emit({"phase": "main_path_launches", "launches": launches})
     check(launches["block"] > 0, "the block kernel ran on the main path")
     check(launches["tree"] > 0, "the tree kernel ran on the main path")
@@ -1470,6 +1519,390 @@ def run_main_path(topk, search, work: Path) -> dict:
     cli_path(imgs, npz, engine, "a photo of a dog")
     engine.close()
     return launches
+
+
+def config_with(work: Path, **env):
+    """A Config read from an EVOSSEARCH_* environment of exactly ``env``;
+    the process environment is restored after."""
+    from evossearch_tpu_torch.core import Config
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("EVOSSEARCH_")}
+    for key in saved:
+        del os.environ[key]
+    os.environ.update(env)
+    try:
+        return Config(env_path=work / "missing.env")
+    finally:
+        for key in env:
+            del os.environ[key]
+        os.environ.update(saved)
+
+
+def clustered_rows(gen: torch.Generator, d: int, centres: int):
+    """``rows(m)`` for write_store: unit rows scattered around ``centres``
+    random unit centres with Gaussian noise of sigma 1.2/sqrt(d) per
+    coordinate (tests/test_ivf.py's noise-to-centre ratio), normalized."""
+    c = unit_rows(centres, gen, d=d)
+
+    def rows(m):
+        pick = torch.randint(0, centres, (m,), generator=gen, device="cuda")
+        x = c[pick] + 1.2 / math.sqrt(d) * torch.randn(m, d, generator=gen, device="cuda")
+        return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+    return rows
+
+
+def ivf_phase(search, work: Path) -> dict:
+    """The IVF index (EVOSSEARCH_INDEX_KIND=ivf) over a clustered bf16 store
+    of N_IVF rows: the build through an engine (split into its stages),
+    recall@48 of the auto nprobe against the exact path on 64 noisy
+    queries, the full probe against exact, device IVF against exact at
+    Q = 1 and 48 on the same store (CUDA events), the sidecar's save and a
+    second engine's reload without retraining, and a third engine under a
+    budget below 3x the corpus that serves from the sidecar on the host."""
+    from evossearch_tpu_torch.engine import SearchEngine, _canon
+    from evossearch_tpu_torch.index.search import exact_search_host_reader
+    from evossearch_tpu_torch.index.store import IndexReader
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    folder = work / "store_ivf"
+    t0 = time.perf_counter()
+    write_store(folder, N_IVF, gen, rows=clustered_rows(gen, D, IVF_CENTRES))
+    store_s = time.perf_counter() - t0
+    reader = IndexReader.open(folder)
+    emb_d = torch.from_numpy(np.ascontiguousarray(reader.embeddings())).view(
+        torch.bfloat16).cuda()
+    pick = torch.randint(0, N_IVF, (IVF_QUERIES,), generator=gen, device="cuda")
+    queries = emb_d[pick].float() + 0.05 * torch.randn(
+        IVF_QUERIES, D, generator=gen, device="cuda")
+    queries = queries / torch.linalg.norm(queries, dim=1, keepdim=True)
+    q_np = queries.cpu().numpy()
+    sidecar = folder / ".clip_index" / "ivf.npz"
+    k = 48
+
+    cfg = config_with(work, EVOSSEARCH_INDEX_KIND="ivf")
+    eng = SearchEngine(cfg=cfg, device="cuda")
+    t0 = time.perf_counter()
+    first = eng.search_embedding(str(folder), q_np[0], k)
+    first_s = time.perf_counter() - t0
+    entry = eng._index_cache[_canon(str(folder))]
+    ivf = entry["ivf"]
+    check(eng.counters.snapshot().get("ivf_builds") == 1 and sidecar.exists(),
+          "the engine built the IVF once and persisted its sidecar")
+    check(entry["device_bytes"] == 3 * N_IVF * D * 2 and "emb" not in entry,
+          "the engine reserved 3x the corpus for the IVF and holds no exact copy")
+    auto = ivf.resolve_nprobe(k)
+    s, i = ivf.search_batch(queries, k)
+    es, ei = search.best_exact_search_batch(emb_d, queries, k)
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(i.tolist(), ei.tolist())]))
+    check(recall >= 0.99, f"IVF recall@{k} at the auto nprobe {auto} >= 0.99 ({recall})")
+    check(np.array_equal(first[1], i[0][i[0] >= 0]),
+          "the engine's IVF search equals IVFIndex.search_batch")
+    fs, fi = ivf.search_batch(queries[:8], k, nprobe=ivf.nlist)
+    check(same_ranking(fs, fi, es[:8], ei[:8]),
+          "IVF at nprobe = nlist equals the exact top-k (scores within 1e-5)")
+    times = {
+        "ivf_ms_q1": time_ms(lambda: ivf.search_batch(queries[:1], k), reps=10),
+        "ivf_ms_q48": time_ms(lambda: ivf.search_batch(queries[:Q], k), reps=5),
+        "exact_ms_q1": time_ms(lambda: search.best_exact_search_batch(emb_d, queries[:1], k)),
+        "exact_ms_q48": time_ms(lambda: search.best_exact_search_batch(emb_d, queries[:Q], k)),
+    }
+    t0 = time.perf_counter()
+    ivf.save(work / "ivf_copy.npz")
+    save_s = time.perf_counter() - t0
+    (work / "ivf_copy.npz").unlink()
+    eng.close()
+
+    eng2 = SearchEngine(cfg=config_with(work, EVOSSEARCH_INDEX_KIND="ivf"), device="cuda")
+    t0 = time.perf_counter()
+    again = eng2.search_embedding(str(folder), q_np[0], k)
+    reload_s = time.perf_counter() - t0
+    check("ivf_builds" not in eng2.counters.snapshot()
+          and np.array_equal(again[1], first[1]),
+          "a second engine reloaded the sidecar without retraining, same ids")
+    eng2.close()
+    del eng2
+
+    eng3 = SearchEngine(cfg=config_with(work, EVOSSEARCH_INDEX_KIND="ivf",
+                                        EVOSSEARCH_HBM_BUDGET_MB=str(IVF_BUDGET_MB)),
+                        device="cuda")
+    host_ms, exact_host_ms = [], []
+    for j in range(8):
+        t0 = time.perf_counter()
+        hs, hi, _ = eng3.search_embedding(str(folder), q_np[j], k)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(same_ranking(hs[None], hi[None], s[j:j + 1], i[j:j + 1]),
+              f"the host IVF probe equals the device IVF (query {j})")
+    for j in range(3):
+        t0 = time.perf_counter()
+        exact_search_host_reader(reader, q_np[j], k)
+        exact_host_ms.append((time.perf_counter() - t0) * 1e3)
+    snap = eng3.counters.snapshot()
+    entry3 = eng3._index_cache[_canon(str(folder))]
+    check(snap.get("ivf_host_queries") == 8 and snap.get("host_routed_queries") == 8
+          and entry3.get("device_bytes", 0) == 0,
+          "the over-budget folder was served by the host IVF probe, counted, "
+          "with no device bytes")
+    eng3.close()
+    row = {"phase": "ivf", "n": N_IVF, "d": D, "store_dtype": "bfloat16",
+           "centres": IVF_CENTRES, "store_written_s": store_s,
+           "nlist": ivf.nlist, "cap": ivf.buckets.shape[1], "spill": ivf.spill.shape[0],
+           "build_s": ivf.build_s, "first_search_s": first_s,
+           "tuned_nprobe": ivf.tuned_nprobe, "auto_nprobe_k48": auto,
+           "recall_at_48": recall, "full_probe_equals_exact": True,
+           "full_probe_ids_identical": bool(np.array_equal(fi, ei[:8])), **times,
+           "sidecar_bytes": sidecar.stat().st_size, "save_s": save_s,
+           "reload_first_search_s": reload_s, "budget_mb": IVF_BUDGET_MB,
+           "host_ivf_ms": host_ms, "host_ivf_ms_median": statistics.median(host_ms),
+           "exact_host_scan_ms_median": statistics.median(exact_host_ms),
+           "ivf_host_queries": snap.get("ivf_host_queries"),
+           "exact_faster_on_card_q1": times["exact_ms_q1"] < times["ivf_ms_q1"],
+           "exact_faster_on_card_q48": times["exact_ms_q48"] < times["ivf_ms_q48"]}
+    emit(row)
+    del emb_d, ivf, entry
+    torch.cuda.empty_cache()
+    return row
+
+
+def openai_resnet_state_dict(spec, seed: int) -> dict:
+    """A seeded state dict in the OpenAI release layout for a modified-
+    ResNet ``spec`` (clip/model.py's ModifiedResNet keys: a three-conv
+    stem, ``layer{1..4}`` Bottlenecks whose first block has the
+    ``downsample`` shortcut, an ``attnpool``), fp16 as the release files
+    hold them. BatchNorm weights, biases and running statistics (var > 0)
+    are drawn at random: OpenAI's zero bn3 init would make every residual
+    branch vanish. Conv weights have He's scale, sqrt(2 / fan_in), so the
+    activations keep their size through the depth: at 1/sqrt(fan_in) the
+    random tower maps any two images to embeddings of cosine > 0.999, and
+    no search would tell them apart. The text tower is
+    openai_state_dict's."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    sd = openai_state_dict(spec, seed, visual=False)
+
+    def t(key, *shape, std, base=0.0):
+        sd[key] = (base + std * torch.randn(*shape, generator=gen)).half()
+
+    def bn(prefix, c):
+        t(f"{prefix}.weight", c, std=0.2, base=1.0)
+        t(f"{prefix}.bias", c, std=0.1)
+        t(f"{prefix}.running_mean", c, std=0.2)
+        sd[f"{prefix}.running_var"] = (0.5 + torch.rand(c, generator=gen)).half()
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    def conv(key, cout, cin, kk):
+        t(key, cout, cin, kk, kk, std=(2 / (cin * kk * kk)) ** 0.5)
+
+    w = spec.vision_width
+    for i, (cin, cout) in enumerate(((3, w // 2), (w // 2, w // 2), (w // 2, w))):
+        conv(f"visual.conv{i + 1}.weight", cout, cin, 3)
+        bn(f"visual.bn{i + 1}", cout)
+    inplanes = w
+    for stage, blocks in enumerate(spec.vision_layers):
+        planes = w * 2 ** stage
+        for j in range(blocks):
+            p = f"visual.layer{stage + 1}.{j}"
+            conv(f"{p}.conv1.weight", planes, inplanes, 1)
+            bn(f"{p}.bn1", planes)
+            conv(f"{p}.conv2.weight", planes, planes, 3)
+            bn(f"{p}.bn2", planes)
+            conv(f"{p}.conv3.weight", planes * 4, planes, 1)
+            bn(f"{p}.bn3", planes * 4)
+            if j == 0:
+                conv(f"{p}.downsample.0.weight", planes * 4, inplanes, 1)
+                bn(f"{p}.downsample.1", planes * 4)
+            inplanes = planes * 4
+    c = spec.attn_dim
+    t("visual.attnpool.positional_embedding", spec.num_image_tokens, c, std=c ** -0.5)
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        t(f"visual.attnpool.{proj}.weight", c, c, std=c ** -0.5)
+        t(f"visual.attnpool.{proj}.bias", c, std=0.02)
+    t("visual.attnpool.c_proj.weight", spec.embed_dim, c, std=c ** -0.5)
+    t("visual.attnpool.c_proj.bias", spec.embed_dim, std=0.02)
+    return sd
+
+
+def resnet_phase(topk, search, work: Path) -> dict:
+    """RN50 at its published full width from a seeded OpenAI-layout ``.pt``
+    through load_checkpoint into the app on the card: the image tower's
+    time per 128-image batch (bf16), the card's f32 (TF32 off inside the
+    forward) and bf16 embeddings against the CPU's f32 on 4 images, then,
+    with the launch counts set to 0 just before and read just after, the
+    HTTP routes on 64 photos and the exact kernels at the tower's
+    d = 1024: text searches over a RN50_STORE-row store (block at k = 48,
+    tree at k = 12) and, under a lowered budget, the SQ8 tier. Returns the
+    kernels' launches on this path."""
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
+    from evossearch_tpu_torch.engine import SearchEngine
+    from evossearch_tpu_torch.models import CLIP, encode_image
+    from evossearch_tpu_torch.server import TestClient, create_app
+
+    spec = CLIP_MODEL_SPECS["RN50"]
+    d = spec.embed_dim
+    t0 = time.perf_counter()
+    pt = work / "RN50.pt"
+    torch.save(openai_resnet_state_dict(spec, SEED), pt)
+    cfg = config_with(work, EVOSSEARCH_CHECKPOINT=str(pt))
+    app = create_app(cfg=cfg, device="cuda")
+    engine = app.engine
+    model = engine.params
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(engine.spec == spec and engine.spec.family == "resnet"
+          and (spec.image_size, spec.vision_width, spec.vision_layers,
+               spec.vision_heads, d) == (224, 64, (3, 4, 6, 3), 32, 1024),
+          "the app runs RN50 at its published width from the OpenAI-layout checkpoint")
+    towers = tower_times(engine)
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    images = torch.randn(4, spec.image_size, spec.image_size, 3, generator=gen)
+    cpu = CLIP(spec)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = encode_image(cpu.eval(), images)
+    del cpu
+    flags = []
+    hook = model.visual.stem.conv1.register_forward_pre_hook(
+        lambda mod, args: flags.append(torch.backends.cudnn.allow_tf32))
+    before = torch.backends.cudnn.allow_tf32
+    got32 = encode_image(model, images.cuda(), torch.float32).cpu()
+    hook.remove()
+    got16 = encode_image(model, images.cuda(), torch.bfloat16).cpu()
+    cos32 = (got32 * want).sum(-1)
+    cos16 = (got16 * want).sum(-1)
+    check(flags == [False] and torch.backends.cudnn.allow_tf32 == before,
+          "cuDNN's TF32 was off inside the f32 forward and restored after")
+    check(bool((cos32 >= 0.9999).all()), f"RN50 f32 card vs CPU cosine >= 0.9999 ({cos32})")
+    check(bool((cos16 >= 0.995).all()), f"RN50 bf16 card vs f32 CPU cosine >= 0.995 ({cos16})")
+
+    imgs = work / "photos_rn50"
+    imgs.mkdir()
+    jpegs = write_jpegs(imgs, 64)
+    store = work / f"store_rn50_{RN50_STORE}"
+    gen_d = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    t0 = time.perf_counter()
+    write_store(store, RN50_STORE, gen_d, d=d, model=spec.name)
+    store_s = time.perf_counter() - t0
+    client = TestClient(app)
+    zero_launches(topk)
+    index = index_run(client, engine, imgs, "defaults")
+    search_ms, image_ms = [], []
+    for text in ("a photo of a dog", "a red car"):
+        t0 = time.perf_counter()
+        r = client.post("/search", json_body={"folder": str(imgs), "query": text, "limit": 12})
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+        sims = [x["similarity"] for x in r.json["results"]]
+        check(r.status_code == 200 and len(sims) == 12 and sims == sorted(sims, reverse=True),
+              f"RN50 /search answered 12 ranked results ({r.status_code})")
+    for p in jpegs[:2]:
+        t0 = time.perf_counter()
+        r = client.post("/search_by_image", data={"folder": str(imgs), "limit": "6"},
+                        files={"image": ("query.jpg", p.read_bytes())})
+        image_ms.append((time.perf_counter() - t0) * 1e3)
+        res = r.json["results"]
+        check(r.status_code == 200 and res[0]["filename"] == p.name
+              and res[0]["similarity"] > 0.99,
+              f"RN50 /search_by_image finds the uploaded {p.name} first")
+    results = {}
+    for k in (48, 12):
+        results[k] = engine.search_text(str(store), "a photo of a cat", k)
+    over = SearchEngine(cfg=config_with(
+        work, EVOSSEARCH_HBM_BUDGET_MB=str(RN50_SQ8_BUDGET_MB),
+        EVOSSEARCH_SQ8_SYNC_ROWS=str(2 * RN50_STORE)), spec=spec, params=model,
+        device="cuda")
+    t0 = time.perf_counter()
+    sq8_res = over.search_text(str(store), "a photo of a cat", 48)
+    sq8_first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(topk.DTYPE_LAUNCHES)
+    for name in ("block", "tree", "sq8"):
+        check(launches[name] > 0, f"the {name} kernel ran on the RN50 path at d = {d}")
+    over_snap = over.counters.snapshot()
+    check(over_snap.get("sq8_queries") == 1
+          and over_snap.get("sq8_fallback_queries", 0) == 0,
+          f"the over-budget d = 1024 folder took the SQ8 tier, certified ({over_snap})")
+    # correctness of what came out, against the dense oracle on the card
+    entry, reader = engine._cached_index(str(store))
+    emb_d = engine._entry_emb(entry, reader)
+    q = torch.as_tensor(engine.encode_text("a photo of a cat"), device="cuda")
+    for k, (scores, idx, _) in list(results.items()) + [("sq8", sq8_res)]:
+        kk = len(idx)
+        o_s, o_i = search.exact_search_batch(emb_d, q, kk)
+        check(same_ranking(scores[None], idx[None], o_s, o_i),
+              f"RN50 store search ({k}) equals the dense oracle")
+    row = {"phase": "resnet", "model": spec.name, "image_size": spec.image_size,
+           "width": spec.vision_width, "layers": list(spec.vision_layers),
+           "heads": spec.vision_heads, "embed_dim": d, "checkpoint_load_s": load_s,
+           "image_tower_ms_b128_bf16": towers["image_tower_ms"],
+           "image_tower_images_per_s": towers["image_tower_images_per_s"],
+           "text_tower_ms_batch1": towers["text_tower_ms_batch1"],
+           "f32_cosine_card_vs_cpu": cos32.tolist(),
+           "f32_max_abs_diff": float((got32 - want).abs().max()),
+           "tf32_inside_f32_forward": flags,
+           "bf16_cosine_card_vs_f32_cpu": cos16.tolist(),
+           "index": index, "search_ms": search_ms, "search_by_image_ms": image_ms,
+           "store_rows": RN50_STORE, "store_written_s": store_s,
+           "sq8_budget_mb": RN50_SQ8_BUDGET_MB, "sq8_first_search_s": sq8_first_s,
+           "launches": launches}
+    emit(row)
+    over.close()
+    engine.close()
+    del emb_d, model, app, engine, over
+    torch.cuda.empty_cache()
+    return launches
+
+
+def wide_kernel_checks(topk) -> dict:
+    """The exact kernels at RN50's d = 1024, bit for bit against their
+    plain versions on exact-dot inputs: B1 (tree) and B2 (block), bf16,
+    at 262,144 and 1,048,576 rows, at Q and every query bucket; B3 (SQ8)
+    at N_SQ8_TAIL and RN50_STORE rows (the resnet phase's SQ8 store), at
+    Q and every query bucket; and the tensor cores' accumulation error at
+    d = 1024 against its model."""
+    d = 1024
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    bit_equal_q = (Q,) + QUERY_BUCKETS
+    sizes = (N_BLOCK, N_TREE)
+    for n in sizes:
+        emb, q_all = exact_inputs(n, torch.bfloat16, gen, d=d)
+        tile = topk._tree_tile_rows(torch.bfloat16)
+        levels = topk.default_levels(n)
+        for name, cand, plain in (
+                ("block", lambda qq: topk.block_candidates(emb, qq, levels),
+                 lambda qq: topk.block_candidates_plain(emb, qq, levels)),
+                ("tree", lambda qq: topk.tree_candidates(emb, qq, tile),
+                 lambda qq: topk.tree_candidates_plain(emb, qq, tile))):
+            for nq in bit_equal_q:
+                got = cand(q_all[:nq])
+                torch.cuda.synchronize()
+                want = plain(q_all[:nq])
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{name} bf16 candidates at d = {d}, N = {n}, Q = {nq} equal the "
+                      "plain version bit for bit")
+                del got, want
+        del emb, q_all
+        torch.cuda.empty_cache()
+    sq8_sizes = (N_SQ8_TAIL, RN50_STORE)
+    for n in sq8_sizes:
+        e8, scal2, q_all = exact_sq8_inputs(n, gen, d=d)
+        for nq in bit_equal_q:
+            q = q_all[:nq]
+            qn = torch.linalg.norm(q, dim=1)
+            got = topk.sq8_candidates(e8, scal2, q, qn, topk.SQ8_TILE_ROWS)
+            torch.cuda.synchronize()
+            want = topk.sq8_candidates_plain(e8, scal2, q, qn, topk.SQ8_TILE_ROWS)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"sq8 candidates at d = {d}, N = {n}, Q = {nq} equal the plain "
+                  "version bit for bit")
+            del got, want
+        del e8, scal2, q_all
+    row = {"phase": "kernel_check_d1024", "d": d,
+           "block_tree_bit_equal_plain_at_n": list(sizes),
+           "block_tree_bit_equal_plain_at_q": list(bit_equal_q),
+           "sq8_bit_equal_plain_at_n": list(sq8_sizes),
+           "sq8_bit_equal_plain_at_q": list(bit_equal_q),
+           **accumulation_check(topk, gen, d=d)}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
 
 
 ROW_TYPES = {"a": "int8", "t": "bf16", "f": "f32"}  # mangled Row -> dtype
@@ -1594,7 +2027,12 @@ def main() -> int:
     launches = main_path(topk, search)
     launches["sq8_variant"] = variant_launches
     f32_launches = f32_search_path(topk, search)
-    launches["tree_f32"], launches["block_f32"] = f32_launches["tree"], f32_launches["block"]
+    launches["tree_f32"], launches["block_f32"] = (f32_launches["tree_f32"],
+                                                   f32_launches["block_f32"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ivf_phase(search, Path(tmp))
+        rn50_launches = resnet_phase(topk, search, Path(tmp))
+    wide_kernel_checks(topk)
     # last, so the 51 GB it allocates and frees precede no timing
     block_grid_check(topk)
 
@@ -1607,6 +2045,8 @@ def main() -> int:
         kernels.append({
             "name": key, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[key],
+            # launches on the resnet phase's path (RN50, d = 1024)
+            "launches_rn50": rn50_launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -8,14 +8,16 @@ is tested against; it never imports it.
 Layer map (bottom-up):
     core/        model constants, config (EVOSSEARCH_* env surface)
     tokenizer/   byte-BPE CLIP text tokenizer (host-side)
-    models/      CLIP image+text towers (torch modules), npz checkpoints,
-                 OpenAI / HuggingFace checkpoint converters
+    models/      CLIP image+text towers (torch modules; ViT and modified-
+                 ResNet image towers), npz checkpoints, OpenAI /
+                 HuggingFace checkpoint converters
     native       C++ host extension (threaded exact scan, libjpeg decode),
                  built with g++ at first use
     preprocess/  native planar/RGB or Pillow decode + resample/center-crop/
                  normalize GEMMs (and YCbCr->RGB for planar batches)
     ops/         hand-written CUDA top-k candidate kernels + merge glue
-    index/       memory-mapped embedding shard store, builder, search
+    index/       memory-mapped embedding shard store, builder, exact
+                 search, SQ8 and IVF tiers
     server/      stdlib WSGI micro-framework + HTTP API + SPA frontend
     utils/       structured logging, timing, torch.profiler hooks
     __main__     the CLI (python -m evossearch_tpu_torch)

@@ -1,8 +1,9 @@
 """SearchEngine — the engine layer tying tokenizer, CLIP towers, the fused
 preprocess and the shard store into the operations the HTTP layer needs.
 PyTorch counterpart of ``evossearch_tpu/engine.py`` (exact search on one
-device; for over-budget corpora the SQ8 capacity tier on the device, else
-the host scan).
+device, or the IVF index under ``INDEX_KIND=ivf``; for over-budget corpora
+the host IVF probe of a persisted sidecar, the SQ8 capacity tier on the
+device, else the host scan).
 
   * the engine runs on one device, ``"cuda"`` unless the caller passes
     ``device="cpu"``; with no GPU and no explicit device it raises;
@@ -19,9 +20,8 @@ the host scan).
     the device converts to RGB (``PLANAR_JPEG``), Pillow otherwise.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): IVF, the sharded kernel and data-parallel encode (with them the
-mesh-sharded SQ8 tier), the ResNet towers (a ResNet checkpoint raises
-while it loads, before any index is touched).
+item): the sharded kernel and data-parallel encode (with them the
+mesh-sharded SQ8 and IVF tiers).
 """
 
 from __future__ import annotations
@@ -45,6 +45,18 @@ from .tokenizer import load_tokenizer
 from .utils import Counters, StageTimer, get_logger
 
 log = get_logger("engine")
+
+# Logged when a GPU engine loads or builds an IVF index: what
+# chip_smoke.py's ``ivf`` phase measured of IVF against exact search.
+IVF_ON_GPU_WARNING = (
+    "INDEX_KIND=ivf on a GPU: on an NVIDIA H100 80GB HBM3 (700 W), over "
+    "1,048,576 clustered bf16 rows of d=512 at the calibrated nprobe (3 of "
+    "1,024 lists; chip_smoke.py, phase ivf, three runs), exact search "
+    "answered a batch of 48 queries in 0.93-1.23 ms against IVF's "
+    "2.96-7.59 ms, and one query in 0.72-1.00 ms against IVF's "
+    "0.53-1.28 ms; exact search (EVOSSEARCH_INDEX_KIND=exact) returns the "
+    "exact top-k"
+)
 
 _UNSET = object()  # lock-free "not initialized" sentinel (batchers, SQ8)
 
@@ -105,8 +117,6 @@ class SearchEngine:
         randomly."""
         self.cfg = cfg or default_config
         self.device = resolve_device(device)
-        if self.cfg.INDEX_KIND == "ivf":
-            raise _not_ported("INDEX_KIND=ivf", "A12")
         if self.cfg.SEARCH_KERNEL == "sharded":
             raise _not_ported("SEARCH_KERNEL=sharded", "A13")
         if (
@@ -598,7 +608,8 @@ class SearchEngine:
                     "device_bytes": e.get("device_bytes", 0),
                     "fits_device": e.get("fits_device"),
                     "tiers": [
-                        f for f in ("emb", "sq8") if e.get(f) is not None
+                        f for f in ("emb", "ivf", "sq8")
+                        if e.get(f) is not None
                     ],
                 }
         return {
@@ -613,11 +624,15 @@ class SearchEngine:
 
     def _fits_device(self, entry, reader) -> bool:
         """Whether this corpus may ever be materialized on the device;
-        cached per entry, the over-budget verdict logged once."""
+        cached per entry, the over-budget verdict logged once. IVF counts
+        (1 + bucket_factor) x the corpus at the store dtype (dense buckets
+        and spill)."""
         fits = entry.get("fits_device")
         if fits is None:
             budget = self._hbm_budget
             need = self._corpus_device_bytes(reader)
+            if self.cfg.INDEX_KIND == "ivf":
+                need *= 3
             fits = budget is None or need <= budget
             if not fits:
                 log.warning(
@@ -653,7 +668,7 @@ class SearchEngine:
                 if not other["lock"].acquire(blocking=False):
                     continue
                 try:
-                    for field in ("emb", "sq8"):
+                    for field in ("emb", "ivf", "sq8"):
                         other.pop(field, None)
                     total -= other["device_bytes"]
                     other["device_bytes"] = 0
@@ -703,6 +718,111 @@ class SearchEngine:
             ).to(self.device)
             row += shard.shape[0]
         return emb
+
+    def _entry_ivf(self, entry, reader):
+        """The folder's IVF index on the device, loaded from its sidecar or
+        built once per cache entry. The device bytes, about (1 +
+        bucket_factor) x the corpus, are reserved before the load or
+        build, which both put corpus-sized tensors on the device."""
+        ivf = entry.get("ivf")
+        if ivf is None:
+            with entry["lock"]:
+                ivf = entry.get("ivf")
+                if ivf is None:
+                    need = 3 * self._corpus_device_bytes(reader)
+                    self._reserve_device_bytes(entry, need)
+                    try:
+                        ivf = self._load_or_build_ivf(entry, reader)
+                    except BaseException:
+                        self._release_device_bytes(entry, need)
+                        raise
+                    entry["ivf"] = ivf
+        return ivf
+
+    def _load_or_build_ivf(self, entry, reader):
+        from .index.ivf import IVFIndex
+
+        ivf_path = reader.root / "ivf.npz"
+        ivf = self._load_ivf_sidecar(
+            ivf_path, entry, reader,
+            lambda p: IVFIndex.load(p, device=self.device),
+        )
+        if self.device.type == "cuda":
+            log.warning(IVF_ON_GPU_WARNING)
+        if ivf is None:
+            # store rows are unit norm at encode time; the buckets keep
+            # the store dtype (bf16 halves the IVF's device bytes)
+            emb = self._to_device(reader)
+            ivf = IVFIndex.build(
+                emb, nlist=self.cfg.IVF_NLIST, pre_normalized=True,
+            )
+            del emb
+            self.counters.add("ivf_builds")
+            try:
+                ivf.save(ivf_path)
+            except OSError:
+                pass  # persistence is an optimization only
+        return ivf
+
+    def _ivf_want_nlist(self, reader) -> int:
+        """Effective nlist, as IVFIndex.build resolves it (0 = auto
+        sqrt(n), clamped to n): a sidecar built under an old
+        EVOSSEARCH_IVF_NLIST must not pin the setting."""
+        want = self.cfg.IVF_NLIST or max(1, int(reader.count ** 0.5))
+        return min(want, max(reader.count, 1))
+
+    def _load_ivf_sidecar(self, path, entry, reader, loader):
+        """A persisted IVF sidecar iff it is fresh (not older than the
+        entry's manifest mtime) and matches the store's row count and the
+        current effective nlist; None when absent, stale or mismatched."""
+        if not (path.exists() and path.stat().st_mtime >= entry["mtime"]):
+            return None
+        ivf = loader(path)
+        if ivf is not None and (
+            ivf.n != reader.count or ivf.nlist != self._ivf_want_nlist(reader)
+        ):
+            return None
+        return ivf
+
+    def _entry_ivf_host(self, entry, reader):
+        """Host-resident IVF of an over-budget folder, or None: the
+        persisted sidecar loaded with ``host=True`` (numpy, no device
+        bytes), so INDEX_KIND=ivf still probes nprobe buckets instead of
+        scanning every row. Never builds on a miss: training puts the
+        corpus on the device, which an over-budget folder cannot do."""
+        if "ivf_host" not in entry:
+            with entry["lock"]:
+                if "ivf_host" not in entry:
+                    from .index.ivf import IVFIndex
+
+                    ivf = self._load_ivf_sidecar(
+                        reader.root / "ivf.npz", entry, reader,
+                        lambda p: IVFIndex.load(p, host=True),
+                    )
+                    if ivf is None:
+                        log.warning(
+                            "INDEX_KIND=ivf but the over-budget folder has "
+                            "no matching ivf.npz sidecar — serving the exact "
+                            "host scan instead (build the sidecar on a "
+                            "device with enough memory, or re-index)",
+                        )
+                    entry["ivf_host"] = ivf
+        return entry["ivf_host"]
+
+    def _ivf_host_search_batch(self, ivf, queries: np.ndarray, k: int):
+        """Host IVF probes of a batch, padded to search_batch's contract:
+        (Q, k) scores and ids, id -1 and score NEG_INF where the probed
+        lists covered fewer than k rows."""
+        from .index.ivf import NEG_INF
+
+        nq = queries.shape[0]
+        out_s = np.full((nq, k), NEG_INF, np.float32)
+        out_i = np.full((nq, k), -1, np.int64)
+        for qi in range(nq):
+            s, i = ivf.search_host(queries[qi], k, nprobe=self.cfg.IVF_NPROBE)
+            out_s[qi, : len(s)] = s
+            out_i[qi, : len(i)] = i
+        return out_s, out_i
 
     def _entry_sq8(self, entry, reader):
         """SQ8 capacity tier for an over-budget folder, or None.
@@ -878,13 +998,19 @@ class SearchEngine:
 
     def _host_search_batch(self, queries, reader, k: int, entry=None):
         """Exact scan in place over the mmap shards (SEARCH_KERNEL=host);
-        for the over-budget ``entry`` of a folder, the SQ8 tier first."""
+        for the over-budget ``entry`` of a folder, the host IVF probe
+        (INDEX_KIND=ivf with a matching sidecar) or the SQ8 tier first."""
         from .index.search import exact_search_host_reader_batch
 
         if isinstance(queries, torch.Tensor):
             queries = queries.cpu().numpy()
         queries = np.asarray(queries, np.float32).reshape(-1, reader.dim)
         self.counters.add("host_routed_queries", queries.shape[0])
+        if entry is not None and self.cfg.INDEX_KIND == "ivf":
+            ivf = self._entry_ivf_host(entry, reader)
+            if ivf is not None:
+                self.counters.add("ivf_host_queries", queries.shape[0])
+                return self._ivf_host_search_batch(ivf, queries, k)
         sq8 = None if entry is None else self._entry_sq8(entry, reader)
         if sq8 is not None:
             self.counters.add("sq8_queries", queries.shape[0])
@@ -898,7 +1024,8 @@ class SearchEngine:
         from .index.search import _PACK_MAX_ROWS
 
         return (
-            reader.count < _PACK_MAX_ROWS
+            self.cfg.INDEX_KIND != "ivf"
+            and reader.count < _PACK_MAX_ROWS
             and self._resolve_kernel() in ("xla", "pallas", "best")
             and self._fits_device(entry, reader)
         )
@@ -953,6 +1080,10 @@ class SearchEngine:
             best_exact_search_batch, exact_search_batch, pallas_search_batch,
         )
 
+        if self.cfg.INDEX_KIND == "ivf":
+            return self._entry_ivf(entry, reader).search_batch(
+                queries, k, nprobe=self.cfg.IVF_NPROBE
+            )
         kernel = self._resolve_kernel()
         if kernel == "host":
             return self._host_search_batch(queries, reader, k)
@@ -975,9 +1106,18 @@ class SearchEngine:
         if isinstance(query, np.ndarray):
             query = np.asarray(query, np.float32)
         q2d = query if query.ndim == 2 else query[None, :]
+        # IVF rows the probes covered short come back padded with id -1
+        padded = self.cfg.INDEX_KIND == "ivf"
         with self.timers.stage("search"):
             if not self._fits_device(entry, reader):
                 batcher = self._host_batcher
+                padded = padded and self._entry_ivf_host(entry, reader) is not None
+            elif padded:
+                batcher = self._batcher
+                # a first-touch build (k-means over the whole corpus) runs
+                # in this request thread, not in the batcher's worker,
+                # where it would hold up every other folder's searches
+                self._entry_ivf(entry, reader)
             elif self._resolve_kernel() == "host":
                 batcher = None
             else:
@@ -990,6 +1130,9 @@ class SearchEngine:
             else:
                 s, i = self._execute_search_batch(folder, q2d, k)
                 scores, idx = s[0], i[0]
+            if padded:
+                valid = idx >= 0
+                scores, idx = scores[valid], idx[valid]
         self.counters.add("queries")
         return scores, idx, reader
 

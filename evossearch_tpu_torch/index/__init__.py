@@ -5,6 +5,7 @@ from .comments import (
     load_comments,
     save_comments,
 )
+from .ivf import IVFIndex
 from .search import exact_search_batch
 from .store import IndexReader, IndexWriter, exists, index_dir, load_progress
 
@@ -16,6 +17,7 @@ __all__ = [
     "load_comments",
     "save_comments",
     "exact_search_batch",
+    "IVFIndex",
     "IndexReader",
     "IndexWriter",
     "exists",

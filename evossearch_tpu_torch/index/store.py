@@ -69,8 +69,10 @@ def as_float32(rows: np.ndarray) -> np.ndarray:
 
 
 def _to_storage(embeddings: np.ndarray, dtype_name: str) -> np.ndarray:
+    """Rows as the store holds them; bfloat16 rows may arrive as their bit
+    patterns (uint16), which pass through unchanged."""
     if dtype_name == "bfloat16":
-        return bf16_bits(embeddings)
+        return embeddings if embeddings.dtype == np.uint16 else bf16_bits(embeddings)
     return embeddings.astype(_dtype_of(dtype_name))
 
 

@@ -75,11 +75,13 @@ def load_params(path: str | Path) -> tuple[dict, CLIPModelSpec]:
 def params_from_numpy(tree: dict, spec: CLIPModelSpec,
                       device: str | torch.device | None = None):
     """The JAX package's param pytree (numpy leaves: stacked ``(L, ...)``
-    block leaves, ``(in, out)`` dense kernels) as a port :class:`CLIP`
-    module on ``device`` (None: the GPU, or a raise without one; pass
-    ``"cpu"`` for the CPU). Layer ``l`` of a stacked leaf
-    ``visual/blocks/attn/wqkv`` becomes ``visual.blocks.l.attn.wqkv``;
-    every leaf must match a parameter exactly."""
+    block leaves, ``(in, out)`` dense kernels, HWIO conv kernels) as a
+    port :class:`CLIP` module on ``device`` (None: the GPU, or a raise
+    without one; pass ``"cpu"`` for the CPU). Layer ``l`` of a stacked
+    leaf ``visual/blocks/attn/wqkv`` becomes ``visual.blocks.l.attn.wqkv``,
+    block ``l`` of a ResNet stage's stacked tail ``visual/stage3/rest/
+    conv1/kernel`` becomes ``visual.stage3.rest.l.conv1.kernel``; every
+    leaf must match a parameter exactly."""
     from .clip import CLIP
 
     device = resolve_device(device)
@@ -87,8 +89,9 @@ def params_from_numpy(tree: dict, spec: CLIPModelSpec,
     for name, value in _flatten(tree).items():
         arr = np.array(value, np.float32)  # a writable copy
         parts = name.split("/")
-        if "blocks" in parts:
-            at = parts.index("blocks") + 1
+        stacked = [p for p in ("blocks", "rest") if p in parts]
+        if stacked:
+            at = parts.index(stacked[0]) + 1
             for layer in range(arr.shape[0]):
                 key = ".".join(parts[:at] + [str(layer)] + parts[at:])
                 state[key] = torch.from_numpy(np.ascontiguousarray(arr[layer]))

@@ -9,7 +9,9 @@ OpenAI architecture.
          ln_final -> pooled at EOT (argmax of ids) -> text_projection
 
 Images stay channels-last (B, H, W, 3) at the public functions, as in the
-JAX package. Only the ViT family is ported.
+JAX package. A ``CLIPResNetSpec`` takes the modified-ResNet image tower
+(``models/resnet.py``) beside the same text tower; ``encode_image``
+dispatches through the module the spec built.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 
 from ..core.constants import CLIPModelSpec
 from .layers import LayerNorm, TowerConfig, init_tower_, matmul_f32, transformer
+from .resnet import ModifiedResNet, expected_visual_param_count, init_visual_resnet
 
 
 def _patch_embed(images: torch.Tensor, kernel: torch.Tensor, patch: int):
@@ -88,17 +91,15 @@ class TextTower(nn.Module):
 class CLIP(nn.Module):
     """Both towers; parameter names follow the JAX pytree with per-layer
     block modules (``visual.blocks.3.attn.wqkv`` is layer 3 of the JAX
-    leaf ``visual/blocks/attn/wqkv``)."""
+    leaf ``visual/blocks/attn/wqkv``; ``visual.stage3.rest.0.conv1.kernel``
+    is block 0 of the stacked leaf ``visual/stage3/rest/conv1/kernel``)."""
 
     def __init__(self, spec: CLIPModelSpec):
         super().__init__()
-        if spec.family != "vit":
-            raise NotImplementedError(
-                f"{spec.name}: only ViT CLIP towers are ported "
-                "(ROADMAP A14, the ResNet family)"
-            )
         self.spec = spec
-        self.visual = VisionTower(spec)
+        self.visual = (
+            ModifiedResNet(spec) if spec.family == "resnet" else VisionTower(spec)
+        )
         self.text = TextTower(spec)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
@@ -108,16 +109,52 @@ class CLIP(nn.Module):
         spec, v, t = self.spec, self.visual, self.text
         vw, tw = spec.vision_width, spec.text_width
         with torch.no_grad():
-            v.patch_embed["kernel"].normal_(0.0, vw ** -0.5, generator=gen)
-            v.class_embedding.normal_(0.0, vw ** -0.5, generator=gen)
-            v.pos_embed.normal_(0.0, vw ** -0.5, generator=gen)
-            v.proj.normal_(0.0, vw ** -0.5, generator=gen)
-            init_tower_(v.blocks, v.cfg, gen)
+            if spec.family == "resnet":
+                init_visual_resnet(v, gen)
+            else:
+                v.patch_embed["kernel"].normal_(0.0, vw ** -0.5, generator=gen)
+                v.class_embedding.normal_(0.0, vw ** -0.5, generator=gen)
+                v.pos_embed.normal_(0.0, vw ** -0.5, generator=gen)
+                v.proj.normal_(0.0, vw ** -0.5, generator=gen)
+                init_tower_(v.blocks, v.cfg, gen)
             t.token_embed.normal_(0.0, 0.02, generator=gen)
             t.pos_embed.normal_(0.0, 0.01, generator=gen)
             t.proj.normal_(0.0, tw ** -0.5, generator=gen)
             init_tower_(t.blocks, t.cfg, gen)
         return self
+
+
+def expected_param_count(spec: CLIPModelSpec) -> int:
+    """Analytic parameter count of a spec, the JAX package's: ViT-B/32 ==
+    151,277,313 and ViT-B/16 == 149,620,737 (the OpenAI release counts);
+    ResNet specs count their BN statistics, which are parameters here."""
+
+    def tower(width: int, layers: int) -> int:
+        attn = width * 3 * width + 3 * width + width * width + width
+        mlp = width * 4 * width + 4 * width + 4 * width * width + width
+        lns = 2 * (2 * width)
+        return layers * (attn + mlp + lns)
+
+    vw, tw = spec.vision_width, spec.text_width
+    if spec.family == "resnet":
+        visual = expected_visual_param_count(spec)
+    else:
+        visual = (
+            spec.patch_size * spec.patch_size * 3 * vw  # patch embed (no bias)
+            + vw  # class embedding
+            + spec.num_image_tokens * vw  # pos embed
+            + 2 * vw + 2 * vw  # ln_pre + ln_post
+            + tower(vw, spec.vision_layers)
+            + vw * spec.embed_dim  # projection
+        )
+    text = (
+        spec.vocab_size * tw
+        + spec.context_length * tw
+        + 2 * tw  # ln_final
+        + tower(tw, spec.text_layers)
+        + tw * spec.embed_dim
+    )
+    return visual + text + 1  # + logit_scale
 
 
 def _l2_normalize(emb: torch.Tensor) -> torch.Tensor:

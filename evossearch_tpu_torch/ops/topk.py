@@ -89,6 +89,10 @@ _FETCH_MIN_RATIO = 32
 # Kernel launches per wrapper, counted where the CUDA kernel is launched
 # and nowhere else (plain CPU runs do not count).
 LAUNCHES = {"block": 0, "tree": 0, "sq8": 0, "sq8_variant": 0, "stream": 0}
+# The same launches split by the corpus dtype: f32 corpora count under
+# "<name>_f32", every other dtype under the kernel's name.
+DTYPE_LAUNCHES = {"block": 0, "block_f32": 0, "tree": 0, "tree_f32": 0, "sq8": 0,
+                  "sq8_variant": 0, "stream": 0, "stream_f32": 0}
 
 # The stream kernel's layout and selection (csrc/topk_stream.cu holds the
 # same values): rows per ring slot fill 32 KB, at most 64; one block per
@@ -388,6 +392,7 @@ def _launch(name: str, emb: torch.Tensor, args: list) -> None:
     if rc:
         raise RuntimeError(f"topk_{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    DTYPE_LAUNCHES[f"{name}_f32" if emb.dtype == torch.float32 else name] += 1
 
 
 def block_candidates(emb: torch.Tensor, queries: torch.Tensor, levels: int = LEVELS):

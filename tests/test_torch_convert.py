@@ -261,14 +261,18 @@ def test_resnet_state_dict_converts_equal():
 
 
 def test_resnet_checkpoint_raises_before_any_index(tmp_path):
-    """The engine converts a ResNet checkpoint and raises the A14 error
-    while it starts, before an index exists."""
+    """The engine converts a ResNet checkpoint while it starts, before an
+    index exists. Until the ResNet tower was ported (A14) it raised there;
+    now it starts on the checkpoint's spec and encodes at its width."""
     path = tmp_path / "rn.pt"
     torch.save(_resnet_sd(), path)
     cfg = Config(env_path=tmp_path / "missing.env")
     cfg.CHECKPOINT_PATH = str(path)
-    with pytest.raises(NotImplementedError, match="A14"):
-        SearchEngine(cfg=cfg, device="cpu")
+    engine = SearchEngine(cfg=cfg, device="cpu")
+    assert engine.spec.family == "resnet" and engine.spec.vision_layers == RN_LAYERS
+    emb = engine.encode_images([np.zeros((80, 96, 3), np.uint8)])
+    assert emb.shape == (1, RN_EMBED) and np.isfinite(emb).all()
+    engine.close()
 
 
 # -------------------------------------------------------- load_checkpoint

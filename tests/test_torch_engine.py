@@ -183,7 +183,9 @@ def test_over_budget_folder_takes_host_scan(setup, tmp_path):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"EVOSSEARCH_INDEX_KIND": "ivf"}, "A12"),
+    # the mesh-sharded IVF (parallel/sharded_ivf.py); IVF on one device is
+    # ported (tests/test_torch_ivf.py)
+    ({"EVOSSEARCH_INDEX_KIND": "ivf", "EVOSSEARCH_SEARCH_KERNEL": "sharded"}, "A13"),
     ({"EVOSSEARCH_SEARCH_KERNEL": "sharded"}, "A13"),
 ])
 def test_unported_tiers_raise(env, item, tmp_path):

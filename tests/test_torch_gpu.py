@@ -93,6 +93,26 @@ def test_tree_kernel_equals_plain(dtype, tile_rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_launches_counted_by_corpus_dtype(dtype):
+    """A launch on an f32 corpus counts under "<name>_f32" and one on a
+    bf16 corpus under the kernel's name, beside the per-kernel count."""
+    _need_gpu()
+    tdt = DTYPES[dtype]
+    emb, q = _exact_inputs(58, 70_001, 256, 7)
+    e, q = emb.to(tdt).cuda(), q.cuda()
+    for name, call in (("tree", lambda: topk.tree_candidates(e, q, 512)),
+                       ("block", lambda: topk.block_candidates(e, q))):
+        key = f"{name}_f32" if dtype == "f32" else name
+        before, by_dtype = topk.LAUNCHES[name], dict(topk.DTYPE_LAUNCHES)
+        call()
+        torch.cuda.synchronize()
+        assert topk.LAUNCHES[name] == before + 1
+        by_dtype[key] += 1
+        assert topk.DTYPE_LAUNCHES == by_dtype
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("tile_rows", [512, 16384])
 def test_tree_bf16_tensor_core_kernel_equals_plain(tile_rows):
     """The bf16 path on the tensor cores, bit for bit on exact-dot inputs:
@@ -428,3 +448,77 @@ def test_openai_checkpoint_loads_on_gpu(tmp_path):
     finally:
         for eng in engines:
             eng.close()
+
+
+def _random_bn_(model, seed):
+    """Random BatchNorm gammas, betas and statistics (var > 0) in place:
+    OpenAI's zero bn3 init would make every residual branch vanish."""
+    from evossearch_tpu_torch.models.resnet import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                c = mod.scale.shape[0]
+                mod.scale.copy_(0.5 + torch.rand(c, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(c, generator=gen))
+                mod.mean.copy_(0.2 * torch.randn(c, generator=gen))
+                mod.var.copy_(0.5 + torch.rand(c, generator=gen))
+    return model
+
+
+@pytest.mark.gpu
+def test_rn50_on_gpu_matches_cpu():
+    """The full-width RN50 tower on the card against the CPU, both f32
+    (TF32 off inside the forward: cosine >= 0.9999), and the card's bf16
+    against the CPU's f32 (cosine >= 0.995)."""
+    _need_gpu()
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
+    from evossearch_tpu_torch.models import CLIP, encode_image
+
+    spec = CLIP_MODEL_SPECS["RN50"]
+    cpu = _random_bn_(CLIP(spec).init_random_(torch.Generator().manual_seed(0)), 1).eval()
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, spec.image_size, spec.image_size, 3)).astype(np.float32))
+    want = encode_image(cpu, images)
+    gpu = cpu.to("cuda")
+    got = encode_image(gpu, images.cuda()).cpu()
+    got_bf16 = encode_image(gpu, images.cuda(), torch.bfloat16).cpu()
+    assert ((got * want).sum(-1) >= 0.9999).all()
+    assert ((got_bf16 * want).sum(-1) >= 0.995).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ivf_on_gpu_matches_cpu(dtype, tmp_path):
+    """One IVF sidecar searched on the card and on the CPU: the same ids
+    (but where a near-tie may order by summation), scores within 1e-5;
+    a build on the card lands on the CPU build's centroids."""
+    _need_gpu()
+    from evossearch_tpu_torch.index.ivf import IVFIndex, _assign
+
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((100, 128))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    emb = centers[rng.integers(0, 100, 20_000)] + 0.1 * rng.standard_normal((20_000, 128))
+    emb = torch.from_numpy((emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32))
+    emb = emb.to(DTYPES[dtype])
+    cpu = IVFIndex.build(emb, nlist=128, iters=8, pre_normalized=True)
+    cpu.save(tmp_path / "ivf.npz")
+    gpu = IVFIndex.load(tmp_path / "ivf.npz", device="cuda")
+    assert gpu.buckets.is_cuda and gpu.buckets.dtype == DTYPES[dtype]
+    q = emb[:16].float() + 0.05 * torch.randn(16, 128, generator=torch.Generator().manual_seed(4))
+    q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+    for nprobe in (0, 128):
+        s, i = cpu.search_batch(q, 48, nprobe)
+        gs, gi = gpu.search_batch(q.cuda(), 48, nprobe)
+        np.testing.assert_allclose(gs, s, rtol=0, atol=1e-5)
+        clear = np.ones_like(s, bool)
+        gap = np.abs(np.diff(s, axis=1)) > 1e-5
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+        np.testing.assert_array_equal(gi[clear], i[clear])
+    built = IVFIndex.build(emb.cuda(), nlist=128, iters=8, pre_normalized=True)
+    assert float((built.centroids.cpu() - cpu.centroids).abs().max()) < 1e-4
+    same = (_assign(emb, built.centroids.cpu()) == _assign(emb, cpu.centroids)).float()
+    assert float(same.mean()) >= 0.999

@@ -86,6 +86,26 @@ def test_bf16_rounding_equals_ml_dtypes():
                                   .astype(np.float32))
 
 
+def test_bf16_bits_pass_through_the_writer(tmp_path):
+    """bfloat16 rows handed to the writer as their bit patterns (rounded
+    by torch) give the same files as the float32 rows rounded by the
+    writer."""
+    emb, _, _ = _write(IndexWriter, tmp_path / "f32", "bfloat16")
+    bits = torch.from_numpy(emb).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    paths = [f"/img/{i}.jpg" for i in range(len(emb))]
+    meta = [{"path": p, "mtime": float(i), "size": 100 + i} for i, p in enumerate(paths)]
+    w = IndexWriter.create(tmp_path / "bits", model="tiny", dim=emb.shape[1],
+                           dtype_name="bfloat16", rows_per_shard=4)
+    w.append(bits, paths, meta)
+    w.finalize()
+    for shard in sorted((tmp_path / "f32" / ".clip_index" / "shards").iterdir()):
+        mine = tmp_path / "bits" / ".clip_index" / "shards" / shard.name
+        assert mine.read_bytes() == shard.read_bytes()
+    r = RefReader.open(tmp_path / "bits", verify_checksums=True)
+    np.testing.assert_array_equal(
+        _rows_f32(r), emb.astype(ml_dtypes.bfloat16).astype(np.float32))
+
+
 def test_corrupt_manifest_not_indexed(tmp_path):
     _write(RefWriter, tmp_path, "bfloat16")
     (tmp_path / ".clip_index" / "manifest.json").write_text("{broken")

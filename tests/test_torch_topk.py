@@ -202,6 +202,19 @@ def test_query_row_bucket_matches_reference():
         assert search.query_row_bucket(q) == ref_search.query_row_bucket(q)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_runs_count_no_launch_by_dtype(dtype):
+    """The dtype-keyed counts name every kernel of the smoke's kernels
+    line, and plain runs on the CPU add to none of them."""
+    assert set(topk.DTYPE_LAUNCHES) == set(topk.LAUNCHES) | {
+        "block_f32", "tree_f32", "stream_f32"}
+    emb = torch.zeros((1000, 128), dtype=dtype)
+    before = dict(topk.DTYPE_LAUNCHES)
+    topk.block_candidates(emb, torch.zeros((2, 128)))
+    topk.tree_candidates(emb, torch.zeros((2, 128)), 512)
+    assert topk.DTYPE_LAUNCHES == before
+
+
 def test_wrappers_check_inputs_and_count_only_kernel_launches():
     emb = torch.zeros((1000, 128))
     before = dict(topk.LAUNCHES)

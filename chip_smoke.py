@@ -5,7 +5,8 @@
 Builds the top-k kernels from evossearch_tpu_torch/ops/csrc with nvcc
 (one nvcc per source, in parallel) and, beside them, the package's host
 extension with g++ (phase ``native``: the threaded host scanner, and the
-libjpeg decoders where the machine has the libjpeg headers), holds each
+libjpeg decoders, by the system's libjpeg or the one Pillow bundles,
+which must decode a JPEG there), holds each
 kernel against its plain PyTorch
 version and a dense oracle (a stable sort written here), times them (and
 checks and times the dense path's selection, stable_topk, against that
@@ -34,7 +35,8 @@ store), as users start the port:
     RGB one;
   * the main path: the HTTP app indexes 64 JPEGs twice (Pillow and RGB
     canvases, then the defaults: the native planar decode where it is
-    built), each /index split into decode, host prepare and encode, and
+    built, its embeddings held against Pillow/RGB's by cosine), each
+    /index split into decode, host prepare and encode, and
     answers /search and /search_by_image, and text searches over two
     seeded stores of 262,144 and 1,048,576 rows reach the block and the
     tree kernel through the engine's normal routing; ``host_scan`` then
@@ -51,6 +53,14 @@ store), as users start the port:
     to the SQ8 tier and the int8 bound-sweep kernel; one search is then
     split into its stages (device half, copy back, row gather, rerank and
     certificate);
+  * ``train``: contrastive training at ViT-B/32 full width from the
+    converted npz, through the CLI's ``train`` in subprocesses on a
+    seeded caption folder (2 epochs, then 1 resumed: the loss falls, the
+    epochs continue), the trained checkpoint in an engine, retrieval
+    accuracy before and after, the card's f32 and bf16 loss and
+    gradients against the CPU's, remat on against off, and step times and
+    peak memory at batch 32 and 256 (launches counted: none of the
+    kernels is on this path), after the paths above are freed;
 
 then, before the last check, the slices that serve other settings:
 
@@ -82,13 +92,14 @@ variants have a ``kernel_check`` line), and ``tree_f32``, ``block_f32``
 and ``stream_f32`` the kernels' f32 paths; ``launches`` and
 ``launches_rn50`` count each kernel's launches by corpus dtype
 (``ops.topk.DTYPE_LAUNCHES``) on the main path and on the resnet phase's
-path. The last line is
+path, and ``launches_train`` on the train phase's. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1134,24 +1145,43 @@ def openai_state_dict(spec, seed: int, visual: bool = True) -> dict:
 
 
 def native_phase(build_info: dict, build_s: float) -> dict:
-    """The host extension's build (started beside nvcc) and what it
-    holds: the scanner always, the JPEG decoders where the machine has
-    the libjpeg headers."""
+    """The host extension's build (started beside nvcc), its libjpeg
+    route and what it holds: the scanner always, the JPEG decoders
+    whenever the system's libjpeg headers or Pillow's bundled libjpeg are
+    found. A decoder that is built must decode here: a libjpeg whose
+    struct layout differs from the headers' fails its first decode, which
+    the loaders would otherwise count as a Pillow retry."""
+    import io as bytes_io
+
+    from PIL import Image
+
     from evossearch_tpu_torch.preprocess import io
 
     mod = io.get_native()
-    row = {"phase": "native", "jpeglib_h": build_info.get("jpeglib_h"),
+    libjpeg = bool(build_info.get("jpeglib_h")) or build_info.get("pillow_libjpeg") is not None
+    row = {"phase": "native", "route": build_info.get("route"),
+           "jpeglib_h": build_info.get("jpeglib_h"),
+           "pillow_libjpeg": build_info.get("pillow_libjpeg"),
            "build_s": build_info.get("seconds"), "build_wall_s": build_s,
            "command": build_info.get("command"),
            "library": str(build_info.get("library")),
            "error": build_info.get("error"),
            "scanner": mod is not None and hasattr(mod, "topk_bf16"),
            "decode": io.has_native_decode()}
+    if row["decode"]:
+        buf = bytes_io.BytesIO()
+        Image.fromarray(np.random.default_rng(0).integers(0, 256, (480, 640, 3), np.uint8)
+                        ).save(buf, "JPEG", quality=90)
+        h, w, ch, cw, *_ = mod.decode_jpeg_planar(buf.getvalue(), 224)  # raises on failure
+        row["planar_decode_480x640_at_224"] = [h, w, ch, cw]
     emit(row)
     check(build_info.get("error") is None, "the native extension built")
     check(mod is not None and row["scanner"], "the native host scanner loaded")
-    check(row["decode"] == bool(build_info.get("jpeglib_h")),
-          "the decode entry points are there exactly when jpeglib.h is")
+    check(row["decode"] == libjpeg and row["route"] == ("system" if row["jpeglib_h"] else
+                                                        "pillow" if libjpeg else "none"),
+          "the decode entry points are there exactly when a libjpeg is, by the first route")
+    check(not row["decode"] or row["planar_decode_480x640_at_224"] == [240, 320, 120, 160],
+          "the native planar decoder decodes a 480x640 JPEG at half scale")
     return row
 
 
@@ -1301,31 +1331,62 @@ def index_run(client, engine, imgs: Path, mode: str) -> dict:
             "decode_counts": counts}
 
 
+def stored_by_path(imgs: Path) -> dict:
+    """The folder's stored embeddings (float32) by file path."""
+    from evossearch_tpu_torch.index.store import IndexReader, as_float32
+
+    reader = IndexReader.open(imgs)
+    return dict(zip(reader.paths, as_float32(reader.embeddings())))
+
+
+# The defaults (DCT-scaled native planar decode) against Pillow at full
+# size and RGB canvases, per photo. The JAX package's own bound, 0.999
+# (tests/test_native.py, tests/test_planar.py), is set on smooth images;
+# on these photos its decode routes part further at the FHD ones, which
+# decode at 1/4 scale: tests/test_torch_planar.py holds the port's
+# per-photo cosines to the JAX package's on them (0.99795 at the least,
+# in both, with a small model).
+DECODE_COS_MIN = 0.998
+DECODE_COS_MEDIAN = 0.9999
+
+
 def index_twice(client, engine, imgs: Path) -> dict:
     """/index of the photo folder with FAST_DECODE=0 PLANAR_JPEG=0 (Pillow
     at full size, RGB canvases), then with the defaults, in turns, twice
     (the first run also pays first-call costs); each split into decode,
     host prepare and encode (upload, device preprocess, image tower and
     the copy back), host clock, from the engine's stage timers, with the
-    decode routes counted."""
+    decode routes counted. The defaults' embeddings are held against the
+    Pillow/RGB ones, photo by photo: cosine > DECODE_COS_MIN each and a
+    median > DECODE_COS_MEDIAN."""
     import shutil
 
     from evossearch_tpu_torch.preprocess.io import has_native_decode
 
     cfg = engine.cfg
     runs: dict = {"pillow_rgb": [], "defaults": []}
+    stored = {}
     for mode, fast in (("pillow_rgb", False), ("defaults", True)) * 2:
         cfg.FAST_DECODE = cfg.PLANAR_JPEG = fast
         shutil.rmtree(imgs / cfg.INDEX_FOLDER_NAME, ignore_errors=True)
         runs[mode].append(index_run(client, engine, imgs, mode))
+        stored[mode] = stored_by_path(imgs)
     cfg.FAST_DECODE = cfg.PLANAR_JPEG = True
     native = has_native_decode()
     want = "decode_native_planar" if native else "decode_pillow"
+    cos = [float(a @ stored["pillow_rgb"][p] / (np.linalg.norm(a)
+                                                * np.linalg.norm(stored["pillow_rgb"][p])))
+           for p, a in stored["defaults"].items()]
     check(all(r["decode_counts"] == {"decode_pillow": 64} for r in runs["pillow_rgb"]),
           "with FAST_DECODE=0 every photo decoded with Pillow")
     check(all(r["decode_counts"] == {want: 64} for r in runs["defaults"]),
           f"with the defaults every photo took {want}")
-    return {"native_decode": native, **runs}
+    check(len(cos) == 64 and min(cos) > DECODE_COS_MIN
+          and statistics.median(cos) > DECODE_COS_MEDIAN,
+          f"the defaults' embeddings agree with Pillow/RGB's (min cosine {min(cos)})")
+    return {"native_decode": native, **runs,
+            "defaults_vs_pillow_rgb_cosine_min": min(cos),
+            "defaults_vs_pillow_rgb_cosine_median": statistics.median(cos)}
 
 
 def host_scan(reader, query: np.ndarray, k: int = 48, reps: int = 3) -> dict:
@@ -1383,10 +1444,234 @@ def cli_path(imgs: Path, npz: Path, engine, text: str, k: int = 12) -> dict:
     return outs
 
 
-def main_path(topk, search) -> dict:
-    """The three paths in a temporary directory that is removed after."""
+TRAIN_PAIRS = 256     # the train phase's captioned folder
+TRAIN_BATCH = 32      # its batch (the CLI's default)
+TRAIN_LR = 1e-4       # its learning rate, from the npz's random init
+TRAIN_CHECK_BATCH = 8  # pairs of the card-against-CPU step
+TRAIN_COLOURS = {"red": (220, 40, 40), "green": (40, 200, 60),
+                 "blue": (40, 70, 220), "yellow": (230, 210, 40)}
+TRAIN_SHAPES = ("circle", "square")
+
+
+def write_caption_folder(folder: Path, count: int = TRAIN_PAIRS) -> None:
+    """Seeded JPEGs of one coloured shape each (4 colours x 2 shapes) on a
+    noisy grey ground, at four photo sizes, and ``captions.json``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 7)
+    sizes = [(240, 320), (320, 240), (256, 256), (480, 640)]
+    folder.mkdir()
+    captions = {}
+    for i in range(count):
+        colour = list(TRAIN_COLOURS)[i % 4]
+        shape = TRAIN_SHAPES[(i // 4) % 2]
+        h, w = sizes[(i // 8) % len(sizes)]
+        img = rng.normal(128, 20, (h, w, 3))
+        r = rng.uniform(0.2, 0.35) * min(h, w)
+        cy, cx = rng.uniform(r, h - r), rng.uniform(r, w - r)
+        yy, xx = np.mgrid[0:h, 0:w]
+        if shape == "circle":
+            inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        else:
+            inside = (np.abs(yy - cy) <= r) & (np.abs(xx - cx) <= r)
+        img[inside] = np.asarray(TRAIN_COLOURS[colour]) + rng.normal(0, 10, (int(inside.sum()), 3))
+        name = f"pair_{i:03d}.jpg"
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(folder / name, quality=90)
+        captions[name] = f"a photo of a {colour} {shape}"
+    (folder / "captions.json").write_text(json.dumps(captions))
+
+
+def train_cli(folder: Path, out: Path, *extra: str) -> tuple[dict, float]:
+    """``python -m evossearch_tpu_torch train`` in a subprocess on the card,
+    at TRAIN_BATCH and TRAIN_LR; (its JSON line, its wall seconds)."""
+    env = {key: v for key, v in os.environ.items() if not key.startswith("EVOSSEARCH_")}
+    argv = [sys.executable, "-m", "evossearch_tpu_torch", "train", str(folder),
+            "--out", str(out), "--batch-size", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+            "--device", "cuda", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI trained ({' '.join(extra)}):\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def loss_and_grads(model, images, tokens, dtype, remat=True):
+    """One loss and its gradients (float64 on the host, by name)."""
+    from evossearch_tpu_torch.train import clip_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = clip_loss(model, images, tokens, dtype, remat)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().double().cpu()
+                                  for n, p in model.named_parameters()}
+
+
+def grad_cosines(a: dict, b: dict) -> dict:
+    return {n: float(a[n].ravel() @ b[n].ravel()
+                     / (torch.linalg.norm(a[n]) * torch.linalg.norm(b[n]))) for n in a}
+
+
+def train_step_times(model, spec, batch: int, dtype) -> dict:
+    """The f32 (or bf16) train step with remat at ``batch`` pairs on the
+    card: CUDA-event median of 10 steps after 3 warm-up steps, and the
+    peak memory allocated over them: in all (the process holds little
+    else by then), and over what was allocated before the optimizer's
+    state (the parameters, and the batch)."""
+    from evossearch_tpu_torch.train import make_optimizer, make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    images = torch.randn(batch, spec.image_size, spec.image_size, 3, generator=gen,
+                         device="cuda").to(dtype)
+    tokens = torch.randint(1, spec.vocab_size - 1, (batch, spec.context_length),
+                           generator=gen, device="cuda")
+    tokens[:, 12] = spec.vocab_size - 1  # eot = max id
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(learning_rate=1e-6)
+    state = opt.init(model)
+    step = make_train_step(spec, opt, compute_dtype=dtype)
+    ms = time_ms(lambda: step(model, state, images, tokens), reps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return {"batch": batch, "dtype": str(dtype).split(".")[-1], "remat": True,
+            "step_ms": ms, "pairs_per_s": batch / ms * 1e3, "peak_allocated_bytes": peak,
+            "allocated_before_bytes": base, "peak_over_before_bytes": peak - base}
+
+
+def train_phase(topk, npz: Path, work: Path) -> dict:
+    """Contrastive training (A15) at ViT-B/32 full width, from the npz
+    that checkpoint_convert wrote, with the launch counts set to 0 just
+    before and read just after (the path runs none of the kernels):
+
+      * a seeded caption folder (TRAIN_PAIRS JPEGs, 4 colours x 2
+        shapes); the CLI's ``train`` in a subprocess for 2 epochs, then
+        ``--resume`` for 1: the loss falls and the epochs continue;
+      * ``clip.npz`` in an engine that indexes the folder and answers a
+        text search; retrieval_accuracy before and after training;
+      * one f32 loss and gradient on the card against the CPU's (same
+        weights, same preprocessed batch), with TF32 off; remat on
+        against off on the card; a bf16 step on the card against the
+        CPU's bf16;
+      * step times and peak memory at batch 32 and 256 (f32, remat), and
+        the bf16 step at batch 32.
+    Returns the kernels' launches on this path."""
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS, Config
+    from evossearch_tpu_torch.engine import SearchEngine
+    from evossearch_tpu_torch.models import load_model
+    from evossearch_tpu_torch.preprocess import device_preprocess_indexed
+    from evossearch_tpu_torch.tokenizer import load_tokenizer
+    from evossearch_tpu_torch.train import PairDataset, retrieval_accuracy
+
+    zero_launches(topk)
+    spec = CLIP_MODEL_SPECS["ViT-B/32"]
+    folder, out = work / "pairs", work / "train_out"
+    t0 = time.perf_counter()
+    write_caption_folder(folder)
+    row = {"phase": "train", "model": spec.name, "pairs": TRAIN_PAIRS, "batch": TRAIN_BATCH,
+           "lr": TRAIN_LR, "folder_written_s": time.perf_counter() - t0}
+
+    first, row["cli_2_epochs_s"] = train_cli(folder, out, "--init-from", str(npz), "--epochs", "2")
+    with np.load(out / "train_state.npz") as data:
+        first_state = (int(data["epoch"]), int(data["opt_0"]))
+    resumed, row["cli_resume_1_epoch_s"] = train_cli(folder, out, "--resume", "--epochs", "1")
+    with np.load(out / "train_state.npz") as data:
+        resumed_state = (int(data["epoch"]), int(data["opt_0"]))
+    steps = TRAIN_PAIRS // TRAIN_BATCH
+    history = first["loss_history"] + resumed["loss_history"]
+    row.update(loss_history=history, epoch_and_count_after_first=first_state,
+               epoch_and_count_after_resume=resumed_state)
+    check(first["success"] and first["model"] == spec.name and len(history) == 3,
+          f"the CLI's JSON lines ({first}, {resumed})")
+    check(history[0] > history[1] > history[2], f"the loss falls across the epochs ({history})")
+    check(first_state == (1, 2 * steps) and resumed_state == (2, 3 * steps),
+          "the resumed run continued the epoch numbering and the optimizer's count")
+
+    tokenizer = load_tokenizer(None)
+    batches = list(PairDataset(folder, tokenizer, spec, batch_size=TRAIN_BATCH, seed=SEED).epoch())
+    init, _ = load_model(npz, device="cuda")
+    trained, trained_spec = load_model(out / "clip.npz", device="cuda")
+    check(trained_spec == spec, "clip.npz holds ViT-B/32")
+    row["retrieval_accuracy_before"] = retrieval_accuracy(init, spec, batches)
+    row["retrieval_accuracy_after"] = retrieval_accuracy(trained, spec, batches)
+    check(row["retrieval_accuracy_after"] > row["retrieval_accuracy_before"],
+          "training raised the in-batch retrieval accuracy")
+
+    cfg = Config(env_path=work / "missing.env")
+    cfg.CHECKPOINT_PATH = str(out / "clip.npz")
+    eng = SearchEngine(cfg=cfg, device="cuda")
+    count = eng.index_folder(str(folder))
+    scores, idx, reader = eng.search_text(str(folder), "a photo of a red circle", 8)
+    captions = json.loads((folder / "captions.json").read_text())
+    row["search_top8_captions_matching"] = sum(
+        captions[Path(reader.paths[int(i)]).name] == "a photo of a red circle" for i in idx)
+    eng.close()
+    del eng
+    check(count == TRAIN_PAIRS and len(scores) == 8 and np.isfinite(scores).all(),
+          "an engine on the trained clip.npz indexed the folder and answered /search")
+
+    # the card against the CPU: one batch, preprocessed once on the CPU
+    canv, a_h, a_w, size_idx, tokens = batches[0]
+    n = TRAIN_CHECK_BATCH
+    images = device_preprocess_indexed(*(torch.from_numpy(a) for a in (canv[:n], a_h, a_w,
+                                                                       size_idx[:n])))
+    tokens = torch.from_numpy(tokens[:n])
+    cpu, _ = load_model(out / "clip.npz", device="cpu")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is off for float32 products")
+    loss_c, g_c = loss_and_grads(cpu, images, tokens, torch.float32)
+    loss_g, g_g = loss_and_grads(trained, images.cuda(), tokens.cuda(), torch.float32)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 stayed off through the step")
+    cos = grad_cosines(g_g, g_c)
+    loss_n, g_n = loss_and_grads(trained, images.cuda(), tokens.cuda(), torch.float32, remat=False)
+    remat_rel = max(float(torch.linalg.norm(g_n[k] - g_g[k]) / torch.linalg.norm(g_g[k]))
+                    for k in g_g)
+    loss_cb, g_cb = loss_and_grads(cpu, images, tokens, torch.bfloat16)
+    loss_gb, g_gb = loss_and_grads(trained, images.cuda(), tokens.cuda(), torch.bfloat16)
+    cos_b = grad_cosines(g_gb, g_cb)
+    del cpu, g_c, g_g, g_n, g_cb, g_gb
+    row.update(
+        f32_loss_gpu=loss_g, f32_loss_cpu=loss_c, f32_loss_rel_diff=abs(loss_g - loss_c) / loss_c,
+        f32_grad_cosine_min=min(cos.values()), f32_grad_cosine_min_leaf=min(cos, key=cos.get),
+        remat_off_loss_rel_diff=abs(loss_n - loss_g) / loss_g, remat_off_grad_rel_diff_max=remat_rel,
+        bf16_loss_gpu=loss_gb, bf16_loss_cpu=loss_cb, bf16_grad_cosine_min=min(cos_b.values()),
+        bf16_grad_cosine_min_leaf=min(cos_b, key=cos_b.get))
+    check(row["f32_loss_rel_diff"] <= 1e-4 and row["f32_grad_cosine_min"] >= 0.9999,
+          "the card's f32 loss and gradients match the CPU's")
+    check(row["remat_off_loss_rel_diff"] <= 1e-6 and remat_rel <= 1e-6,
+          "remat on and off give the same loss and gradients on the card")
+    check(math.isfinite(loss_gb) and row["bf16_grad_cosine_min"] >= 0.99,
+          "the card's bf16 gradients match the CPU's bf16")
+
+    del init
+    torch.cuda.empty_cache()
+    row["times"] = [train_step_times(trained, spec, 32, torch.float32),
+                    train_step_times(trained, spec, 256, torch.float32),
+                    train_step_times(trained, spec, 32, torch.bfloat16)]
+    del trained
+    torch.cuda.empty_cache()
+    row["launches"] = dict(topk.DTYPE_LAUNCHES)
+    emit(row)
+    return row["launches"]
+
+
+def main_path(topk, search) -> tuple[dict, dict]:
+    """The three paths, then the train phase from the npz they converted,
+    in a temporary directory that is removed after; the paths' engines,
+    stores and threads are freed before the train phase measures the
+    card's memory. Returns each kernel's launches on the paths and on the
+    train phase."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return run_main_path(topk, search, Path(tmp))
+        launches = run_main_path(topk, search, Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches, train_phase(topk, Path(tmp) / "ViT-B-32.npz", Path(tmp))
 
 
 def run_main_path(topk, search, work: Path) -> dict:
@@ -1982,7 +2267,9 @@ def main() -> int:
         try:
             native_info.update(native.build())
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            native_info.update(error=repr(e), jpeglib_h=native.probe()[0])
+            jpeg, lib = native.probe()[0], native.pillow_libjpeg()
+            native_info.update(error=repr(e), jpeglib_h=jpeg, route=native.route_of(jpeg, lib),
+                               pillow_libjpeg=None if lib is None else str(lib))
         native_info["wall_s"] = time.perf_counter() - t0
 
     native_thread = threading.Thread(target=build_native)  # beside nvcc
@@ -2024,7 +2311,7 @@ def main() -> int:
         rows[("stream", dname, k)] = row
     dense_topk_times(topk)
     variant_launches = sq8_split_path(topk)
-    launches = main_path(topk, search)
+    launches, train_launches = main_path(topk, search)
     launches["sq8_variant"] = variant_launches
     f32_launches = f32_search_path(topk, search)
     launches["tree_f32"], launches["block_f32"] = (f32_launches["tree_f32"],
@@ -2045,8 +2332,10 @@ def main() -> int:
         kernels.append({
             "name": key, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[key],
-            # launches on the resnet phase's path (RN50, d = 1024)
+            # launches on the resnet phase's path (RN50, d = 1024) and on
+            # the train phase's (none: training runs no kernel of these)
             "launches_rn50": rn50_launches[key],
+            "launches_train": train_launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -4,15 +4,16 @@
 The same commands and the same JSON output as the JAX package's CLI:
 index a folder (once, or ``--watch``ing it), search it by text or by an
 example image, serve HTTP, prebuild the SQ8 sidecar, convert an OpenAI /
-HuggingFace checkpoint to the native npz. ``--device`` picks the torch
-device (default: the first GPU; ``--device cpu`` for the CPU).
-Contrastive training is not ported yet: ``train`` says so and exits 1.
+HuggingFace checkpoint to the native npz, fine-tune the towers
+contrastively on a captioned folder (``train``). ``--device`` picks the
+torch device (default: the first GPU; ``--device cpu`` for the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 
 
@@ -127,8 +128,7 @@ def _parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--host", default=None)
     p_serve.add_argument("--port", type=int, default=None)
 
-    p_train = add("train", help="contrastive fine-tune (not ported yet: "
-                                "ROADMAP A15)")
+    p_train = add("train", help="contrastive fine-tune on <folder>/captions.json")
     p_train.add_argument("folder")
     p_train.add_argument("--epochs", type=int, default=1)
     p_train.add_argument("--batch-size", type=int, default=32)
@@ -163,9 +163,7 @@ def main(argv: list[str] | None = None) -> int:
     device = getattr(args, "device", None)
 
     if args.command == "train":
-        print("train: contrastive training is not ported to "
-              "evossearch_tpu_torch yet (ROADMAP A15)", file=sys.stderr)
-        return 1
+        return _train(args, device)
 
     if args.command == "convert":
         from .models.checkpoint import save_params
@@ -232,6 +230,62 @@ def main(argv: list[str] | None = None) -> int:
         return _run(engine, args)
     finally:
         engine.close()
+
+
+def _train(args, device) -> int:
+    """The JAX CLI's ``train``, on ``device``, in float32."""
+    from .core import CLIP_MODEL_SPECS, config
+    from .models.checkpoint import load_params, params_from_numpy
+    from .tokenizer import load_tokenizer
+    from .train import PairDataset, fit
+
+    name = args.model or config.CLIP_MODEL
+    if name not in CLIP_MODEL_SPECS:
+        print(f"unknown CLIP model {name!r}; available: "
+              f"{', '.join(CLIP_MODEL_SPECS)}", file=sys.stderr)
+        return 1
+    spec = CLIP_MODEL_SPECS[name]
+    if spec.family == "resnet":
+        print(f"{name} is a ResNet-family model; contrastive training "
+              "supports the ViT family only (frozen inference BatchNorm "
+              "— see train/contrastive.py)", file=sys.stderr)
+        return 1
+    params = None
+    if args.init_from:
+        tree, loaded_spec = load_params(args.init_from)
+        if loaded_spec != spec:
+            print(f"--init-from checkpoint is {loaded_spec.name}, "
+                  f"not {name}", file=sys.stderr)
+            return 1
+        params = params_from_numpy(tree, spec, device)
+    tokenizer = load_tokenizer(config.BPE_VOCAB_PATH or None)
+    try:
+        dataset = PairDataset(args.folder, tokenizer, spec, batch_size=args.batch_size)
+    except (OSError, ValueError) as e:  # no captions.json, or none of its files
+        print(f"train: {e}", file=sys.stderr)
+        return 1
+    _, history = fit(
+        spec, dataset, epochs=args.epochs, learning_rate=args.lr,
+        params=params, checkpoint_dir=args.out, resume=args.resume,
+        device=device,
+    )
+    losses = [float(h) for h in history]
+    if not any(math.isfinite(v) for v in losses):
+        # zero training batches (e.g. <2 decodable captioned images):
+        # report the failure instead of success:true with a bare NaN
+        # token that strict JSON parsers reject
+        print(json.dumps({
+            "success": False, "model": name,
+            "error": "no trainable batches (need >= 2 decodable "
+                     "captioned images per batch)",
+        }))
+        return 1
+    print(json.dumps({
+        "success": True, "model": name, "epochs": args.epochs,
+        "loss_history": [round(v, 4) if math.isfinite(v) else None for v in losses],
+        "checkpoint": f"{args.out}/clip.npz",
+    }))
+    return 0
 
 
 def _run(engine, args) -> int:

@@ -1,5 +1,18 @@
-from .checkpoint import load_model, load_params, params_from_numpy, save_params
-from .clip import CLIP, encode_image, encode_text, expected_param_count
+from .checkpoint import (
+    load_model,
+    load_params,
+    params_from_numpy,
+    params_to_numpy,
+    save_params,
+)
+from .clip import (
+    CLIP,
+    embed_image,
+    embed_text,
+    encode_image,
+    encode_text,
+    expected_param_count,
+)
 from .convert import (
     from_hf_state_dict,
     from_openai_state_dict,
@@ -12,6 +25,8 @@ from .layers import TowerConfig, quick_gelu
 __all__ = [
     "CLIP",
     "expected_param_count",
+    "embed_image",
+    "embed_text",
     "encode_image",
     "encode_text",
     "from_hf_state_dict",
@@ -22,6 +37,7 @@ __all__ = [
     "load_model",
     "load_params",
     "params_from_numpy",
+    "params_to_numpy",
     "save_params",
     "TowerConfig",
     "quick_gelu",

@@ -22,7 +22,14 @@ import torch
 from torch import nn
 
 from ..core.constants import CLIPModelSpec
-from .layers import LayerNorm, TowerConfig, init_tower_, matmul_f32, transformer
+from .layers import (
+    LayerNorm,
+    TowerConfig,
+    init_tower_,
+    matmul_f32,
+    run_blocks,
+    transformer,
+)
 from .resnet import ModifiedResNet, expected_visual_param_count, init_visual_resnet
 
 
@@ -52,16 +59,15 @@ class VisionTower(nn.Module):
         self.ln_post = LayerNorm(vw)
         self.proj = nn.Parameter(torch.empty(vw, spec.embed_dim))
 
-    def forward(self, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, dtype: torch.dtype,
+                remat: bool = False) -> torch.Tensor:
         spec = self.spec
         x = _patch_embed(
             images.to(dtype), self.patch_embed["kernel"], spec.patch_size
         ).to(dtype)
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
-        x = self.ln_pre(x)
-        for blk in self.blocks:
-            x = blk(x)
+        x = run_blocks(self.blocks, self.ln_pre(x), remat)
         pooled = self.ln_post(x[:, 0, :]).float()
         return pooled @ self.proj.float()
 
@@ -77,11 +83,10 @@ class TextTower(nn.Module):
         self.ln_final = LayerNorm(tw)
         self.proj = nn.Parameter(torch.empty(tw, spec.embed_dim))
 
-    def forward(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, dtype: torch.dtype,
+                remat: bool = False) -> torch.Tensor:
         x = self.token_embed[tokens].to(dtype) + self.pos_embed.to(dtype)
-        for blk in self.blocks:
-            x = blk(x)
-        x = self.ln_final(x).float()
+        x = self.ln_final(run_blocks(self.blocks, x, remat)).float()
         # EOT has the highest id in the vocab: argmax finds its position
         eot = tokens.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -159,6 +164,23 @@ def expected_param_count(spec: CLIPModelSpec) -> int:
 
 def _l2_normalize(emb: torch.Tensor) -> torch.Tensor:
     return emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
+
+
+def embed_image(model: CLIP, images: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32,
+                remat: bool = False) -> torch.Tensor:
+    """The image tower with autograd, for the training loss (ViT family):
+    (B, S, S, 3) preprocessed -> (B, embed_dim) float32, L2-normalized.
+    ``remat`` recomputes each block in the backward pass."""
+    return _l2_normalize(model.visual(images, compute_dtype, remat))
+
+
+def embed_text(model: CLIP, tokens: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32,
+               remat: bool = False) -> torch.Tensor:
+    """The text tower with autograd, for the training loss: (B,
+    context_length) ids -> (B, embed_dim) float32, L2-normalized."""
+    return _l2_normalize(model.text(tokens.long(), compute_dtype, remat))
 
 
 @torch.no_grad()

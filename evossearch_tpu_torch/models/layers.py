@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-5  # OpenAI/HF CLIP LayerNorm epsilon
 
@@ -37,15 +38,8 @@ class TowerConfig:
     causal: bool = False
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """float32 product of operands given in the compute dtype: float32
-    accumulation and result. On a GPU, bf16 operands go to the tensor
-    cores as a bf16 x bf16 -> float32 GEMM (bf16 products are exact in
-    float32, so this is the widened product in another summation order);
-    elsewhere they are widened exactly first. ``b`` is (K, N) or batched
-    like ``a``."""
-    if a.dtype != torch.bfloat16 or a.device.type != "cuda":
-        return torch.matmul(a.float(), b.float())
+def _tensor_core_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 -> float32 GEMM (``b`` (K, N) or batched like ``a``)."""
     out_shape = (*a.shape[:-1], b.shape[-1])
     if b.dim() == 2:
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
@@ -53,6 +47,49 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
                         out_dtype=torch.float32)
     return out.reshape(out_shape)
+
+
+class MatmulF32(torch.autograd.Function):
+    """The bf16 tensor-core product with the gradient of the widened one:
+    each operand's cotangent is the float32 product of the float32
+    cotangent with the other operand widened, cast to the operand's dtype
+    (what autograd gives the CPU route, and what JAX's transpose of a dot
+    with ``preferred_element_type=float32`` returns). The forward runs
+    ``_tensor_core_mm`` on a GPU and the widened product elsewhere."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cuda":
+            return _tensor_core_mm(a, b)
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            af = a.float()
+            if b.dim() == 2:  # (..., K) x (K, N): sum over every leading dim
+                af, g = af.reshape(-1, af.shape[-1]), g.reshape(-1, g.shape[-1])
+            gb = torch.matmul(af.transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 product of operands given in the compute dtype: float32
+    accumulation and result. On a GPU, bf16 operands go to the tensor
+    cores as a bf16 x bf16 -> float32 GEMM (bf16 products are exact in
+    float32, so this is the widened product in another summation order)
+    through ``MatmulF32``, whose backward is the widened product's;
+    elsewhere they are widened exactly first. ``b`` is (K, N) or batched
+    like ``a``."""
+    if a.dtype != torch.bfloat16 or a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    return MatmulF32.apply(a, b)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +179,19 @@ class Block(nn.Module):
 
 def transformer(cfg: TowerConfig) -> nn.ModuleList:
     return nn.ModuleList(Block(cfg) for _ in range(cfg.layers))
+
+
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """The tower's blocks in order; ``remat`` recomputes each block's
+    activations in the backward pass instead of keeping them
+    (``torch.utils.checkpoint``, the counterpart of the JAX package's
+    ``jax.checkpoint`` around each block)."""
+    for blk in blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(blk, x, use_reentrant=False)
+        else:
+            x = blk(x)
+    return x
 
 
 def init_tower_(blocks: nn.ModuleList, cfg: TowerConfig, gen: torch.Generator):

@@ -4,11 +4,21 @@
 decoders) compiles with ``g++`` into ``evossearch_tpu_torch/_build/``
 (git-ignored), named by a hash of the source, the command and the CPU that
 ``-march=native`` resolves to, so an edited source rebuilds and an
-unchanged one loads straight away. Without the libjpeg headers it builds
-with ``-DEVS_NO_JPEG``: the scanner alone. Several processes may build at
-once (test workers): a file lock serializes them, and each compiles to a
-private name that ``os.replace`` publishes. Nothing here runs at import
-time.
+unchanged one loads straight away. The decoders link libjpeg by one of
+three routes, the first that the machine allows:
+
+  ``system``   the system's ``jpeglib.h``, linked with ``-ljpeg``;
+  ``pillow``   the libjpeg-turbo 62-ABI headers carried in ``include/``
+               beside this file (with their license), linked by full path
+               to the ``libjpeg-*.so.62*`` that Pillow's wheel bundles in
+               ``pillow.libs/``, with an rpath to that directory;
+  ``none``     ``-DEVS_NO_JPEG``: the scanner alone, images decode with
+               Pillow.
+
+The path of Pillow's library is part of the command, so it enters the
+hash. Several processes may build at once (test workers): a file lock
+serializes them, and each compiles to a private name that ``os.replace``
+publishes. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # the init symbol is PyInit__native, whatever the file is called
 MODULE_NAME = "evossearch_tpu_torch._native"
 COMPILER = "g++"
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 
 
 def probe() -> tuple[bool, str]:
@@ -47,22 +58,47 @@ def probe() -> tuple[bool, str]:
     return proc.returncode == 0, flags
 
 
-def command(jpeg: bool, out: Path) -> list[str]:
-    """The g++ command line (the flags of the JAX package's build
-    script), without libjpeg when its headers are missing."""
+def pillow_libjpeg() -> Path | None:
+    """The libjpeg (62 ABI) that the installed Pillow wheel bundles, found
+    beside the ``PIL`` package without importing it; None when Pillow is
+    missing or links a system libjpeg."""
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    libs = Path(next(iter(spec.submodule_search_locations))).parent / "pillow.libs"
+    return next(iter(sorted(libs.glob("libjpeg-*.so.62*"))), None)
+
+
+def route_of(jpeglib_h: bool, pillow_lib: Path | None) -> str:
+    """The first route the machine allows: ``system``, ``pillow``,
+    ``none``."""
+    if jpeglib_h:
+        return "system"
+    return "pillow" if pillow_lib is not None else "none"
+
+
+def command(route: str, out: Path, pillow_lib: Path | None = None) -> list[str]:
+    """The g++ command line of ``route`` (the flags of the JAX package's
+    build script): ``-ljpeg``, the carried headers and Pillow's library
+    by path, or no libjpeg at all."""
     cmd = [COMPILER, "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
            f"-I{sysconfig.get_paths()['include']}"]
-    if not jpeg:
+    if route == "pillow":
+        cmd.append(f"-I{INCLUDE_DIR}")
+    elif route == "none":
         cmd.append("-DEVS_NO_JPEG")
     cmd.append(str(SOURCE))
-    if jpeg:
+    if route == "system":
         cmd.append("-ljpeg")
+    elif route == "pillow":
+        # by path, never -ljpeg: the bundled file's soname is renamed
+        cmd += [str(pillow_lib), f"-Wl,-rpath,{pillow_lib.parent}"]
     return cmd + ["-lpthread", "-o", str(out)]
 
 
-def library_path(jpeg: bool, target: str) -> Path:
+def library_path(route: str, target: str, pillow_lib: Path | None = None) -> Path:
     h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(command(jpeg, Path("OUT"))).encode())
+    h.update(" ".join(command(route, Path("OUT"), pillow_lib)).encode())
     h.update(target.encode())
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     return BUILD_DIR / f"_native_{h.hexdigest()[:16]}{suffix}"
@@ -70,12 +106,19 @@ def library_path(jpeg: bool, target: str) -> Path:
 
 def build(compile: bool = True) -> dict:
     """Build the library unless it exists. Returns what happened:
-    ``jpeglib_h``, ``library`` (its path, or None when it is missing and
-    ``compile`` is false), ``command`` and ``seconds`` (both None when no
-    compile ran in this call). Raises RuntimeError when g++ fails."""
+    ``route`` (``system``, ``pillow`` or ``none``), ``jpeglib_h`` (the system headers
+    found), ``pillow_libjpeg`` (Pillow's library, or None), ``library``
+    (its path, or None when it is missing and ``compile`` is false),
+    ``command`` and ``seconds`` (both None when no compile ran in this
+    call). Raises RuntimeError when g++ fails."""
     jpeg, target = probe()
-    out = library_path(jpeg, target)
-    info = {"jpeglib_h": jpeg, "library": out, "command": None, "seconds": None}
+    pillow_lib = pillow_libjpeg()
+    route = route_of(jpeg, pillow_lib)
+    lib = pillow_lib if route == "pillow" else None
+    out = library_path(route, target, lib)
+    info = {"route": route, "jpeglib_h": jpeg,
+            "pillow_libjpeg": None if pillow_lib is None else str(pillow_lib),
+            "library": out, "command": None, "seconds": None}
     if out.exists():
         return info
     if not compile:
@@ -86,7 +129,7 @@ def build(compile: bool = True) -> dict:
         if out.exists():  # another process built it while this one waited
             return info
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = command(jpeg, tmp)
+        cmd = command(route, tmp, lib)
         t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -97,7 +140,8 @@ def build(compile: bool = True) -> dict:
             os.replace(tmp, out)
         finally:
             tmp.unlink(missing_ok=True)
-    return dict(info, command=command(jpeg, out), seconds=time.perf_counter() - t0)
+    return dict(info, command=command(route, out, lib),
+                seconds=time.perf_counter() - t0)
 
 
 def load(path: Path):

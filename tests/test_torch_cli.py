@@ -4,9 +4,11 @@ package's, as ``tests/test_cli_and_frontend.py`` drives it: ``index`` then
 within EMB_ATOL) from one npz checkpoint on two copies of one folder;
 unindexed folders fail; ``convert`` of an HF directory writes the same
 npz; ``--watch`` re-indexes on change; ``sq8`` prebuilds the sidecar;
-``train`` names its ROADMAP item and fails. Every case passes
-``--device cpu``."""
+``train`` fine-tunes a tiny model on a captioned folder with the JAX
+CLI's JSON line and loss history, and refuses what the JAX CLI refuses.
+Every case passes ``--device cpu``."""
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -39,6 +41,12 @@ TINY = CLIPModelSpec(
     text_heads=4, vocab_size=49408, context_length=77, embed_dim=32,
 )
 CPU = ["--device", "cpu"]
+# tests/test_train_loop.py's training spec
+TRAIN_TINY = CLIPModelSpec(
+    name="tiny", image_size=32, patch_size=16, vision_width=64,
+    vision_layers=2, vision_heads=4, text_width=64, text_layers=2,
+    text_heads=4, vocab_size=49408, context_length=16, embed_dim=32,
+)
 
 
 @pytest.fixture(scope="module")
@@ -183,8 +191,92 @@ def test_sq8_prebuilds_the_sidecar(configured, tmp_path, capsys):
 
 
 def test_train_is_not_ported(tmp_path, capsys):
-    assert cli.main(["train", str(tmp_path), *CPU]) == 1
-    assert "ROADMAP A15" in capsys.readouterr().err
+    """What of ``train`` stays unported in both packages: the ResNet
+    family (frozen inference BatchNorm) exits 1 with the JAX CLI's
+    message."""
+    assert cli.main(["train", str(tmp_path), "--model", "RN50", *CPU]) == 1
+    port_err = capsys.readouterr().err
+    assert ref_cli.main(["train", str(tmp_path), "--model", "RN50"]) == 1
+    assert port_err == capsys.readouterr().err
+    assert "supports the ViT family only" in port_err
+
+
+def _captioned(path: Path, count: int = 8) -> Path:
+    path.mkdir()
+    rng = np.random.default_rng(0)
+    captions = {}
+    for i in range(count):
+        rgb = (200, 30, 30) if i % 2 else (30, 30, 200)
+        arr = (np.full((48, 48, 3), rgb) + rng.normal(0, 12, (48, 48, 3))).clip(0, 255)
+        Image.fromarray(arr.astype(np.uint8)).save(path / f"c{i}.jpg", quality=92)
+        captions[f"c{i}.jpg"] = "a red square" if i % 2 else "a blue square"
+    (path / "captions.json").write_text(json.dumps(captions))
+    return path
+
+
+@pytest.fixture()
+def train_tiny(monkeypatch, tmp_path):
+    """A tiny ViT registered in both packages' model tables, its JAX init
+    saved as an npz."""
+    from evossearch_tpu.core import CLIP_MODEL_SPECS as ref_specs
+    from evossearch_tpu.core.constants import CLIPModelSpec as RefSpec
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
+
+    spec = dataclasses.replace(TRAIN_TINY)
+    ref_spec = RefSpec(**dataclasses.asdict(spec))
+    monkeypatch.setitem(CLIP_MODEL_SPECS, "tiny", spec)
+    monkeypatch.setitem(ref_specs, "tiny", ref_spec)
+    return save_params(tmp_path / "init.npz", init_params(jax.random.key(3), ref_spec), ref_spec)
+
+
+def test_train_a_tiny_folder_like_the_jax_cli(train_tiny, tmp_path, capsys):
+    """Both CLIs fine-tune the same init on the same folder: the same JSON
+    line, losses within 2e-4 (each rounded to 4 places; float32
+    summation order only), checkpoints each package loads."""
+    folder = _captioned(tmp_path / "pairs")
+    lines = {}
+    for name, main in (("port", cli.main), ("jax", ref_cli.main)):
+        argv = ["train", str(folder), "--model", "tiny", "--init-from", str(train_tiny),
+                "--out", str(tmp_path / name), "--epochs", "3", "--batch-size", "4",
+                "--lr", "3e-3"]
+        assert main(argv + (CPU if name == "port" else [])) == 0
+        lines[name] = _lines(capsys)
+    (got,), (want,) = lines["port"], lines["jax"]
+    assert got.keys() == want.keys()
+    assert got["success"] is True and got["model"] == "tiny" and got["epochs"] == 3
+    assert got["checkpoint"] == f"{tmp_path / 'port'}/clip.npz"
+    np.testing.assert_allclose(got["loss_history"], want["loss_history"], atol=2e-4)
+    assert got["loss_history"][-1] < got["loss_history"][0]
+    _, spec = ref_load_params(got["checkpoint"])
+    assert spec.name == "tiny"
+
+
+@pytest.mark.parametrize("case", ["empty_folder", "one_image"])
+def test_train_without_trainable_batches_exits_1(train_tiny, tmp_path, capsys, case):
+    """An empty folder (no captions.json) fails; a folder whose captions
+    give no batch of two prints the JAX CLI's JSON error."""
+    folder = tmp_path / "pairs"
+    if case == "empty_folder":
+        folder.mkdir()
+    else:
+        _captioned(folder, count=1)
+    argv = ["train", str(folder), "--model", "tiny", "--init-from", str(train_tiny),
+            "--out", str(tmp_path / "ck"), "--batch-size", "4", *CPU]
+    assert cli.main(argv) == 1
+    out = capsys.readouterr()
+    if case == "empty_folder":
+        assert "captions.json" in out.err and not out.out
+    else:
+        (line,) = [json.loads(x) for x in out.out.strip().splitlines()]
+        assert line["success"] is False and line["model"] == "tiny"
+        assert "no trainable batches" in line["error"]
+
+
+def test_train_init_from_another_model_exits_1(train_tiny, tmp_path, capsys):
+    folder = _captioned(tmp_path / "pairs")
+    argv = ["train", str(folder), "--model", "ViT-B/32", "--init-from", str(train_tiny), *CPU]
+    assert cli.main(argv) == 1
+    assert "--init-from checkpoint is tiny, not ViT-B/32" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [
@@ -197,14 +289,15 @@ def test_device_option_either_side_of_the_command(argv):
 
 def test_module_entry_point_runs(tmp_path):
     """``python -m evossearch_tpu_torch`` in a subprocess (argument errors
-    exit 2, ``train`` exits 1)."""
+    exit 2, ``train`` of a ResNet-family model exits 1)."""
     env = {"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     run = [sys.executable, "-m", "evossearch_tpu_torch"]
     assert subprocess.run(run, capture_output=True, env=env, cwd=tmp_path,
                           timeout=120).returncode == 2
-    proc = subprocess.run(run + ["train", str(tmp_path)], capture_output=True,
-                          text=True, env=env, cwd=tmp_path, timeout=120)
-    assert proc.returncode == 1 and "A15" in proc.stderr
+    proc = subprocess.run(run + ["train", str(tmp_path), "--model", "RN50"],
+                          capture_output=True, text=True, env=env, cwd=tmp_path,
+                          timeout=120)
+    assert proc.returncode == 1 and "ViT family only" in proc.stderr
 
 
 def test_index_of_a_moved_folder_copy(configured, tmp_path, capsys):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the GPU.
+"""The port's CUDA kernels against their plain versions, and the
+training step on the card against the CPU's, on the GPU.
 
 Imports neither JAX nor the JAX package, so the file also runs on a GPU
 machine without them (``python -m pytest --noconftest -m gpu
@@ -522,3 +523,92 @@ def test_ivf_on_gpu_matches_cpu(dtype, tmp_path):
     assert float((built.centroids.cpu() - cpu.centroids).abs().max()) < 1e-4
     same = (_assign(emb, built.centroids.cpu()) == _assign(emb, cpu.centroids)).float()
     assert float(same.mean()) >= 0.999
+
+
+def _train_spec():
+    from evossearch_tpu_torch.core import CLIPModelSpec
+
+    return CLIPModelSpec(
+        name="small", image_size=64, patch_size=16, vision_width=128,
+        vision_layers=3, vision_heads=4, text_width=128, text_layers=3,
+        text_heads=4, vocab_size=512, context_length=16, embed_dim=64,
+    )
+
+
+def _train_batch(spec, n=8):
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((n, spec.image_size, spec.image_size, 3)).astype(np.float32)
+    tokens = np.zeros((n, spec.context_length), np.int64)
+    tokens[:, 0] = 1
+    tokens[:, 1:8] = rng.integers(2, spec.vocab_size - 2, (n, 7))
+    tokens[:, 8] = spec.vocab_size - 1  # eot = max id
+    return torch.from_numpy(images), torch.from_numpy(tokens)
+
+
+def _loss_and_grads(model, images, tokens, dtype, remat=True):
+    from evossearch_tpu_torch.train import clip_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = clip_loss(model, images, tokens, dtype, remat)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().double().cpu()
+                                  for n, p in model.named_parameters()}
+
+
+def _cosine(a, b) -> float:
+    a, b = a.ravel(), b.ravel()
+    return float(a @ b / (torch.linalg.norm(a) * torch.linalg.norm(b)))
+
+
+@pytest.mark.gpu
+def test_train_step_on_gpu_matches_cpu():
+    """One f32 loss and gradient on the card against the CPU's, same
+    weights and batch, TF32 off for the f32 products: loss within 1e-4
+    relative, every gradient leaf at cosine >= 0.9999; remat on against
+    off on the card within 1e-6 relative; bf16 (the tensor-core product's
+    backward, ``MatmulF32``) at cosine >= 0.99 to the CPU's bf16."""
+    _need_gpu()
+    import copy
+
+    from evossearch_tpu_torch.models import CLIP
+
+    spec = _train_spec()
+    cpu = CLIP(spec).init_random_(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    images, tokens = _train_batch(spec)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    loss_c, g_c = _loss_and_grads(cpu, images, tokens, torch.float32)
+    loss_g, g_g = _loss_and_grads(gpu, images.cuda(), tokens.cuda(), torch.float32)
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    assert min(_cosine(g_g[n], g_c[n]) for n in g_c) >= 0.9999
+    loss_n, g_n = _loss_and_grads(gpu, images.cuda(), tokens.cuda(), torch.float32, remat=False)
+    assert abs(loss_n - loss_g) <= 1e-6 * abs(loss_g)
+    for n in g_g:
+        assert float(torch.linalg.norm(g_n[n] - g_g[n])) <= 1e-6 * float(torch.linalg.norm(g_g[n]))
+    loss_cb, g_cb = _loss_and_grads(cpu, images, tokens, torch.bfloat16)
+    loss_gb, g_gb = _loss_and_grads(gpu, images.cuda(), tokens.cuda(), torch.bfloat16)
+    assert np.isfinite(loss_gb)
+    assert min(_cosine(g_gb[n], g_cb[n]) for n in g_cb) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape_b", [(96, 80), (2, 3, 96, 80)])
+def test_matmul_f32_cuda_backward_matches_the_widened_product(shape_b):
+    """The bf16 tensor-core product's gradients on the card equal the
+    widened product's on the CPU to float32 summation order."""
+    _need_gpu()
+    from evossearch_tpu_torch.models.layers import matmul_f32
+
+    gen = torch.Generator().manual_seed(6)
+    a0 = torch.randn(2, 3, 40, 96, generator=gen).to(torch.bfloat16)
+    b0 = torch.randn(*shape_b, generator=gen).to(torch.bfloat16)
+    g = torch.randn(2, 3, 40, 80, generator=gen)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        a = a0.detach().to(dev).requires_grad_()
+        b = b0.detach().to(dev).requires_grad_()
+        out = matmul_f32(a, b)
+        out.backward(g.to(dev))
+        grads.append([t.detach().float().cpu() for t in (out, a.grad, b.grad)])
+    for want, got in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))

@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "evossearch_tpu", "regex", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "optax", "evossearch_tpu", "regex", "ml_dtypes")
 FILES = sorted(
     p for p in (ROOT / "evossearch_tpu_torch").rglob("*.py")
     if "_build" not in p.parts  # kernel build outputs, not the package

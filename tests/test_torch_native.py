@@ -251,3 +251,72 @@ def test_no_library_without_a_build(monkeypatch, tmp_path, why):
         assert list(i[:3]) == [100, 250, 499]
     finally:
         port_io.get_native.cache_clear()  # the next caller loads the real build
+
+
+def _route_build(monkeypatch, tmp_path, jpeglib_h: bool, pillow: bool):
+    """Build into ``tmp_path`` as a machine would where the probe finds
+    the system's ``jpeglib.h`` only if ``jpeglib_h``, and Pillow's bundled
+    libjpeg only if ``pillow``; returns (build info, loaded module)."""
+    real_probe = native_build.probe
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native_build, "probe",
+                        lambda: (jpeglib_h and real_probe()[0], real_probe()[1]))
+    if not pillow:
+        monkeypatch.setattr(native_build, "pillow_libjpeg", lambda: None)
+    # load() registers the module by name; the package's own load stays
+    monkeypatch.setitem(sys.modules, native_build.MODULE_NAME,
+                        sys.modules[native_build.MODULE_NAME])
+    info = native_build.build()
+    return info, native_build.load(info["library"])
+
+
+def _route_jpegs() -> list[bytes]:
+    """4:2:0 and 4:4:4, from 64 px to 1920x1080."""
+    out = []
+    for h, w in ((64, 64), (101, 133), (480, 640), (1080, 1920)):
+        for subsampling in (2, 0):  # Pillow's 4:2:0 and 4:4:4
+            out.append(_jpeg(_smooth(h, w, h / 100), quality=90, subsampling=subsampling))
+    return out
+
+
+def test_pillow_route_decodes_byte_equal_to_the_system_build(natives, monkeypatch, tmp_path):
+    """With the system's jpeglib.h hidden from the probe, the decoders
+    build against the carried 62-ABI headers, linked by path to Pillow's
+    bundled libjpeg with an rpath; their decodes equal the -ljpeg
+    build's, byte for byte, planar and RGB, DCT-scaled and full size."""
+    pillow_lib = native_build.pillow_libjpeg()
+    if pillow_lib is None:
+        pytest.skip("this Pillow bundles no libjpeg")
+    port, _ = natives
+    info, mod = _route_build(monkeypatch, tmp_path, jpeglib_h=False, pillow=True)
+    assert info["route"] == "pillow" and info["pillow_libjpeg"] == str(pillow_lib)
+    cmd = info["command"]
+    assert str(pillow_lib) in cmd and f"-Wl,-rpath,{pillow_lib.parent}" in cmd
+    assert f"-I{native_build.INCLUDE_DIR}" in cmd and "-ljpeg" not in cmd
+    assert info["library"].name != Path(port.__file__).name  # the hash covers it
+    blobs = _route_jpegs()
+    for min_short_side in (0, 224):
+        for fn in ("decode_jpeg", "decode_jpeg_planar"):
+            for data in blobs:
+                assert getattr(mod, fn)(data, min_short_side) == \
+                    getattr(port, fn)(data, min_short_side)
+        for fn in ("decode_jpeg_batch", "decode_jpeg_planar_batch"):
+            assert getattr(mod, fn)(blobs, min_short_side, 2) == \
+                getattr(port, fn)(blobs, min_short_side, 2)
+
+
+def test_scanner_alone_without_any_libjpeg(natives, monkeypatch, tmp_path):
+    """Neither the system's headers nor Pillow's library: the scanner
+    alone (-DEVS_NO_JPEG), which still scans."""
+    info, mod = _route_build(monkeypatch, tmp_path, jpeglib_h=False, pillow=False)
+    assert info["route"] == "none" and "-DEVS_NO_JPEG" in info["command"]
+    assert hasattr(mod, "topk_bf16") and not hasattr(mod, "decode_jpeg_planar_batch")
+
+
+def test_system_headers_come_first(natives):
+    """Where jpeglib.h is found, the -ljpeg build is the route taken."""
+    assert native_build.route_of(True, Path("/x/libjpeg-0.so.62")) == "system"
+    assert native_build.route_of(False, Path("/x/libjpeg-0.so.62")) == "pillow"
+    assert native_build.route_of(False, None) == "none"
+    info = native_build.build(compile=False)
+    assert info["route"] == ("system" if info["jpeglib_h"] else "pillow")

@@ -73,6 +73,20 @@ then, before the last check, the slices that serve other settings:
     events; the sidecar's save and a second engine's reload without
     retraining; a third engine under a budget below 3x the corpus that
     probes the sidecar on the host, beside the native exact host scan;
+  * ``sharded``: the search half of corpus sharding (``parallel/``) on
+    one card, over the stores the phases above wrote: ``ShardedIndex`` on
+    [cuda:0] * S (the 1,048,576-row store at S = 4 and a ragged S = 3,
+    B2 in each block; the over-budget folder's 2,097,152 rows at S = 2,
+    B1) at Q = 48, 1 and 129 against the single-device route, with the
+    host merge's ms; ``SQ8ShardedIndex`` at S = 4 on the over-budget
+    sidecar (B3 per block) against the one-device tier; a
+    ``ShardedIVFIndex`` built at S = 4 over the clustered store (full
+    probe against exact, recall@48 of the calibrated nprobe, save and
+    reload, a mesh of the wrong size); the engine and /search under
+    EVOSSEARCH_SEARCH_KERNEL=sharded against ``best`` (the over-budget
+    folder through SQ8ShardedIndex, INDEX_KIND=ivf with ivf_mesh1.npz);
+    data-parallel encode of the 64 photos over [cuda:0, cuda:0] against
+    one device;
   * ``resnet``: RN50 at its published full width from a seeded
     OpenAI-layout fp16 ``.pt`` through load_checkpoint into the app: the
     image tower's time per 128-image batch, the card's f32 (cuDNN's TF32
@@ -92,7 +106,8 @@ variants have a ``kernel_check`` line), and ``tree_f32``, ``block_f32``
 and ``stream_f32`` the kernels' f32 paths; ``launches`` and
 ``launches_rn50`` count each kernel's launches by corpus dtype
 (``ops.topk.DTYPE_LAUNCHES``) on the main path and on the resnet phase's
-path, and ``launches_train`` on the train phase's. The last line is
+path, ``launches_sharded`` on the sharded phase's and ``launches_train``
+on the train phase's. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -1661,17 +1676,16 @@ def train_phase(topk, npz: Path, work: Path) -> dict:
     return row["launches"]
 
 
-def main_path(topk, search) -> tuple[dict, dict]:
+def main_path(topk, search, work: Path) -> tuple[dict, dict]:
     """The three paths, then the train phase from the npz they converted,
-    in a temporary directory that is removed after; the paths' engines,
-    stores and threads are freed before the train phase measures the
+    in ``work``, whose stores the sharded phase reads later; the paths'
+    engines and threads are freed before the train phase measures the
     card's memory. Returns each kernel's launches on the paths and on the
     train phase."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = run_main_path(topk, search, Path(tmp))
-        gc.collect()
-        torch.cuda.empty_cache()
-        return launches, train_phase(topk, Path(tmp) / "ViT-B-32.npz", Path(tmp))
+    launches = run_main_path(topk, search, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, train_phase(topk, work / "ViT-B-32.npz", work)
 
 
 def run_main_path(topk, search, work: Path) -> dict:
@@ -1947,6 +1961,288 @@ def ivf_phase(search, work: Path) -> dict:
     del emb_d, ivf, entry
     torch.cuda.empty_cache()
     return row
+
+
+SHARDED_QS = (Q, 1, 129)  # query batches of the sharded exact search
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn`` (which ends in host numpy) over
+    ``reps`` runs after one warm-up."""
+    fn()
+    laps = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        laps.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(laps)
+
+
+def sharded_exact(topk, search, reader, n_blocks: int, queries: torch.Tensor,
+                  counted: dict) -> dict:
+    """``parallel.ShardedIndex`` over ``reader`` in ``n_blocks`` row blocks
+    of cuda:0, at each of SHARDED_QS query batches and k = 48, its launches
+    added to ``counted``; then, uncounted, the single-device route on the
+    same rows: the same ranking, the largest score difference, ids equal,
+    CUDA-event ms of both, and the host merge's ms."""
+    from evossearch_tpu_torch.parallel import ShardedIndex, corpus_mesh
+    from evossearch_tpu_torch.parallel.sharded_search import merge_candidates
+
+    k = 48
+    sh = ShardedIndex.from_reader(reader, mesh=corpus_mesh(devices=["cuda:0"] * n_blocks))
+    check(sum(b.shape[0] for b in sh.blocks) == reader.count
+          and all(b.device == torch.device("cuda", 0) for b in sh.blocks),
+          f"the {n_blocks} blocks hold the {reader.count} rows on the card")
+    fb0 = search.DISPATCH_COUNTS["fallback"]
+    zero_launches(topk)
+    got = {nq: sh.search_batch(queries[:nq], k) for nq in SHARDED_QS}
+    torch.cuda.synchronize()
+    for name, v in topk.DTYPE_LAUNCHES.items():
+        counted[name] += v
+    launches = {name: v for name, v in topk.DTYPE_LAUNCHES.items() if v}
+    fallbacks = search.DISPATCH_COUNTS["fallback"] - fb0
+    route = ("tree" if topk.use_tree_kernel(sh.rows, k, torch.bfloat16) else "block") \
+        if sh.rows >= 1 << 18 else "dense"
+    emb_d = torch.cat(sh.blocks)  # the single device's copy of the same rows
+    row = {"n": reader.count, "blocks": n_blocks, "rows_per_block": sh.rows,
+           "block_route": route, "launches": launches, "fallback_batches": fallbacks}
+    for nq, (s, i) in got.items():
+        ws, wi = search.best_exact_search_batch(emb_d, queries[:nq], k)
+        check(same_ranking(s, i, ws, wi),
+              f"sharded x{n_blocks} over {reader.count} rows at Q = {nq} ranks as the "
+              "single device")
+        row[f"q{nq}_max_score_diff"] = float(np.abs(s - ws).max())
+        row[f"q{nq}_ids_equal"] = bool(np.array_equal(i, wi))
+    q = queries[:Q]
+    row["ms_q48"] = time_ms(lambda: sh.search_batch(q, k), reps=10)
+    row["single_ms_q48"] = time_ms(lambda: search.best_exact_search_batch(emb_d, q, k), reps=10)
+    parts = [search.best_exact_search_batch(b, q, k) for b in sh.blocks]
+    cs = np.concatenate([p[0] for p in parts], axis=1)
+    ci = np.concatenate([p[1] + j * sh.rows for j, p in enumerate(parts)], axis=1)
+    row["merge_ms_q48"] = host_ms(lambda: merge_candidates(cs, ci, k), reps=20)
+    del sh, emb_d
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_phase(topk, search, work: Path) -> dict:
+    """The search half of corpus sharding (``parallel/``) on one card, over
+    the stores the earlier phases wrote, each sharded piece counted from 0
+    (``launches_sharded``) and then held, uncounted, against its
+    single-device counterpart:
+
+      * ``ShardedIndex`` on [cuda:0] * S: the 1,048,576-row store at S = 4
+        (blocks of 2^18 rows: B2) and S = 3 (ragged: B2), the over-budget
+        folder's 2,097,152 rows at S = 2 (B1), Q = 48, 1 and 129;
+      * ``SQ8ShardedIndex`` at S = 4 on the over-budget folder's sidecar
+        (B3 per block) against the one-device tier, Q = 48 and 129;
+      * ``ShardedIVFIndex.build`` at S = 4 over the clustered store: the
+        full probe against exact, recall@48 of the calibrated nprobe,
+        save and reload, a mesh of the wrong size;
+      * the engine under EVOSSEARCH_SEARCH_KERNEL=sharded (one card, one
+        block): /search on the photos and text searches over the
+        1,048,576-row store against ``best``'s, the over-budget folder
+        through SQ8ShardedIndex, INDEX_KIND=ivf writing and reusing
+        ivf_mesh1.npz;
+      * data-parallel encode of the 64 photos over [cuda:0, cuda:0]
+        against one device, f32 and bf16.
+
+    Returns the kernels' launches on these paths."""
+    from evossearch_tpu_torch.engine import SearchEngine, _canon
+    from evossearch_tpu_torch.index.sq8 import SQ8Index
+    from evossearch_tpu_torch.index.store import IndexReader
+    from evossearch_tpu_torch.parallel import (
+        SQ8ShardedIndex, ShardedIVFIndex, corpus_mesh,
+    )
+    from evossearch_tpu_torch.preprocess.io import load_image_rgb
+    from evossearch_tpu_torch.server import TestClient, create_app
+    from evossearch_tpu_torch.utils import Counters
+
+    t_phase = time.perf_counter()
+    counted = {name: 0 for name in topk.DTYPE_LAUNCHES}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    queries = unit_rows(max(SHARDED_QS), gen)
+    large = IndexReader.open(work / "store_1048576")
+    over = IndexReader.open(work / f"store_{N_SQ8}")
+    exact = [sharded_exact(topk, search, large, 4, queries, counted),
+             sharded_exact(topk, search, large, 3, queries, counted),
+             sharded_exact(topk, search, over, 2, queries, counted)]
+    check(exact[0]["block_route"] == exact[1]["block_route"] == "block"
+          and exact[2]["block_route"] == "tree",
+          "the blocks take B2 at S = 4 and 3 over 1,048,576 rows, B1 at S = 2 over 2,097,152")
+
+    # -- SQ8ShardedIndex at S = 4 on the over-budget folder's sidecar --
+    base = SQ8Index.load(over)
+    check(base is not None, "the over-budget folder's SQ8 sidecar loads")
+    base.counters = Counters()
+    base.ensure_device("cuda")
+    sq8 = SQ8ShardedIndex(base, corpus_mesh(devices=["cuda:0"] * 4))
+    q_np = queries.cpu().numpy()
+    zero_launches(topk)
+    sq8_got = {nq: sq8.search_batch(q_np[:nq], 48) for nq in (Q, 129)}
+    torch.cuda.synchronize()
+    sq8_launches = topk.DTYPE_LAUNCHES["sq8"]
+    counted["sq8"] += sq8_launches
+    check(sq8_launches == 4 * 3, "B3 ran once per block and 128-query chunk (4 x 3)")
+    sharded_fallbacks = base.counters.snapshot().get("sq8_fallback_queries", 0)
+    bit_equal = {}
+    for nq, (s, i) in sq8_got.items():
+        ws, wi = base.search_batch(q_np[:nq], 48)
+        # a query that one tier certifies and the other sends to the host
+        # scan is scored by another summation there: scores within
+        # SCORE_ATOL, and whether they are bit-equal is reported
+        check(np.array_equal(i, wi) and np.allclose(s, ws, rtol=0, atol=SCORE_ATOL),
+              f"SQ8ShardedIndex x4 at Q = {nq} returns the one-device tier's ids and scores")
+        bit_equal[f"q{nq}_scores_bit_equal"] = bool(np.array_equal(s, ws))
+    sq8_row = {"n": over.count, "blocks": 4, "launches_sq8": sq8_launches, **bit_equal,
+               "fallback_queries_sharded": sharded_fallbacks,
+               "ms_q48": time_ms(lambda: sq8.search_batch(q_np[:Q], 48), reps=10),
+               "one_device_ms_q48": time_ms(lambda: base.search_batch(q_np[:Q], 48),
+                                            reps=10),
+               "ms_q129": time_ms(lambda: sq8.search_batch(q_np, 48), reps=5)}
+    del sq8, base
+    torch.cuda.empty_cache()
+
+    # -- ShardedIVFIndex at S = 4 over the clustered store --
+    ivf_reader = IndexReader.open(work / "store_ivf")
+    mesh4 = corpus_mesh(devices=["cuda:0"] * 4)
+    t0 = time.perf_counter()
+    ivf = ShardedIVFIndex.build(ivf_reader.embeddings(), mesh=mesh4, pre_normalized=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    emb_d = torch.from_numpy(np.ascontiguousarray(ivf_reader.embeddings())).view(
+        torch.bfloat16).cuda()
+    pick = torch.randint(0, ivf_reader.count, (IVF_QUERIES,), generator=gen, device="cuda")
+    iq = emb_d[pick].float() + 0.05 * torch.randn(IVF_QUERIES, D, generator=gen, device="cuda")
+    iq = iq / torch.linalg.norm(iq, dim=1, keepdim=True)
+    zero_launches(topk)
+    s, i = ivf.search_batch(iq, 48)
+    fs, fi = ivf.search_batch(iq[:8], 48, nprobe=ivf.nlist)
+    es, ei = search.best_exact_search_batch(emb_d, iq, 48)
+    recall = float(np.mean([len(set(a) & set(b)) / 48 for a, b in zip(i.tolist(), ei.tolist())]))
+    check(same_ranking(fs, fi, es[:8], ei[:8]),
+          "the sharded IVF at nprobe = nlist equals the exact top-k (scores within 1e-5)")
+    check(recall >= 0.995, f"sharded IVF recall@48 at the calibrated nprobe "
+          f"{ivf.tuned_nprobe} >= the tune target 0.995 ({recall})")
+    side = work / "ivf_mesh4.npz"
+    ivf.save(side)
+    again = ShardedIVFIndex.load(side, mesh=mesh4)
+    check(again is not None and np.array_equal(again.search_batch(iq, 48)[1], i),
+          "the sharded IVF saved and reloaded gives the same results")
+    check(ShardedIVFIndex.load(side, mesh=corpus_mesh(devices=["cuda:0"] * 2)) is None,
+          "a mesh of the wrong size loads None")
+    ivf_row = {"n": ivf_reader.count, "blocks": 4, "nlist": ivf.nlist,
+               "cap": ivf.buckets[0].shape[1], "spill_per_block": ivf.spill[0].shape[0],
+               "build_s": build_s, "tuned_nprobe": ivf.tuned_nprobe,
+               "recall_at_48": recall, "full_probe_ids_identical": bool(np.array_equal(fi, ei[:8])),
+               "sidecar_bytes": side.stat().st_size,
+               "ms_q48": time_ms(lambda: ivf.search_batch(iq[:Q], 48), reps=5),
+               "exact_ms_q48": time_ms(lambda: search.best_exact_search_batch(emb_d, iq[:Q], 48))}
+    side.unlink()
+    del ivf, again, emb_d
+    torch.cuda.empty_cache()
+
+    # -- the engine and HTTP under EVOSSEARCH_SEARCH_KERNEL=sharded --
+    npz = work / "ViT-B-32.npz"
+    photos, store = work / "photos", work / "store_1048576"
+    zero_launches(topk)
+    app = create_app(cfg=config_with(work, EVOSSEARCH_SEARCH_KERNEL="sharded",
+                                     EVOSSEARCH_CHECKPOINT=str(npz)), device="cuda")
+    eng = app.engine
+    check(eng._resolve_kernel() == "sharded" and eng._corpus_mesh().size
+          == torch.cuda.device_count(), "the engine serves the sharded kernel, one block a card")
+    client = TestClient(app)
+    texts = ("a photo of a dog", "a red car")
+    http = {t: client.post("/search", json_body={"folder": str(photos), "query": t,
+                                                  "limit": 12}).json["results"]
+            for t in texts}
+    text_res = {k: eng.search_text(str(store), "a photo of a cat", k) for k in (12, 48)}
+    entry = eng._index_cache[_canon(str(store))]
+    check(entry.get("sharded") is not None and "emb" not in entry,
+          "the engine holds the 1,048,576-row store as a ShardedIndex")
+    over_eng = SearchEngine(cfg=config_with(
+        work, EVOSSEARCH_SEARCH_KERNEL="sharded", EVOSSEARCH_HBM_BUDGET_MB=str(SQ8_BUDGET_MB)),
+        spec=eng.spec, params=eng.params, device="cuda")
+    over_res = over_eng.search_embedding(str(work / f"store_{N_SQ8}"), q_np[0], 48)
+    ivf_cfg = dict(EVOSSEARCH_SEARCH_KERNEL="sharded", EVOSSEARCH_INDEX_KIND="ivf")
+    ivf_eng = SearchEngine(cfg=config_with(work, **ivf_cfg), spec=eng.spec,
+                           params=eng.params, device="cuda")
+    small = work / "store_262144"
+    ivf_first = ivf_eng.search_embedding(str(small), q_np[0], 48)
+    torch.cuda.synchronize()
+    engine_launches = dict(topk.DTYPE_LAUNCHES)
+    for name, v in engine_launches.items():
+        counted[name] += v
+    over_entry = over_eng._index_cache[_canon(str(work / f"store_{N_SQ8}"))]
+    check(isinstance(over_entry.get("sq8"), SQ8ShardedIndex) and engine_launches["sq8"] > 0,
+          "the over-budget folder is served through SQ8ShardedIndex, B3 launched")
+    check(ivf_eng.counters.snapshot().get("ivf_builds") == 1
+          and (small / ".clip_index" / "ivf_mesh1.npz").exists(),
+          "INDEX_KIND=ivf under sharded built and wrote ivf_mesh1.npz")
+    ivf_eng2 = SearchEngine(cfg=config_with(work, **ivf_cfg), spec=eng.spec,
+                            params=eng.params, device="cuda")
+    ivf_again = ivf_eng2.search_embedding(str(small), q_np[0], 48)
+    check("ivf_builds" not in ivf_eng2.counters.snapshot()
+          and np.array_equal(ivf_again[1], ivf_first[1]),
+          "a second engine reused ivf_mesh1.npz, same ids")
+    best = create_app(cfg=config_with(work, EVOSSEARCH_SEARCH_KERNEL="best",
+                                      EVOSSEARCH_CHECKPOINT=str(npz)), device="cuda")
+    best_client = TestClient(best)
+    for t in texts:
+        want = best_client.post("/search", json_body={"folder": str(photos), "query": t,
+                                                       "limit": 12}).json["results"]
+
+        def rows(res):
+            return (np.array([[r["similarity"] for r in res]]),
+                    np.array([[r["path"] for r in res]]))
+
+        check(len(http[t]) == 12 and same_ranking(*rows(http[t]), *rows(want)),
+              f"/search {t!r} under sharded equals best's")
+    for k, (s, i, _) in text_res.items():
+        ws, wi, _ = best.engine.search_text(str(store), "a photo of a cat", k)
+        check(same_ranking(s[None], i[None], ws[None], wi[None]),
+              f"the sharded engine's text search over {store.name} at k = {k} equals best's")
+    o_s, o_i = search.exact_search_host_reader_batch(over, q_np[:1], 48)
+    check(same_ranking(over_res[0][None], over_res[1][None], o_s, o_i),
+          "the over-budget sharded SQ8 search equals the exact host scan")
+    engine_row = {"launches": {n: v for n, v in engine_launches.items() if v},
+                  "http_search_equals_best": True, "ivf_mesh1_bytes":
+                  (small / ".clip_index" / "ivf_mesh1.npz").stat().st_size,
+                  "over_budget_sq8_queries": over_eng.counters.snapshot().get("sq8_queries")}
+    for e in (eng, over_eng, ivf_eng, ivf_eng2, best.engine):
+        e.close()
+    del app, best, eng, over_eng, ivf_eng, ivf_eng2, entry, over_entry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- data-parallel encode over [cuda:0, cuda:0] --
+    images = [load_image_rgb(p) for p in sorted(photos.glob("*.jpg"))]
+    dp_row = {"images": len(images)}
+    for dtype_name in ("float32", "bfloat16"):
+        one = SearchEngine(cfg=config_with(work, EVOSSEARCH_CHECKPOINT=str(npz),
+                                           EVOSSEARCH_COMPUTE_DTYPE=dtype_name), device="cuda")
+        dp = SearchEngine(cfg=config_with(work, EVOSSEARCH_COMPUTE_DTYPE=dtype_name),
+                          spec=one.spec, params=one.params, device="cuda")
+        dp.__dict__["_encode_devices"] = [torch.device("cuda", 0)] * 2
+        a, b = dp.encode_images(images), one.encode_images(images)
+        cos = (a * b).sum(axis=1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+        if dtype_name == "float32":
+            err = float(np.abs(a - b).max())
+            check(err <= 1e-5, f"DP encode f32 within 1e-5 of one device ({err})")
+            dp_row["f32_max_abs_diff"] = err
+        else:
+            check(float(cos.min()) >= 0.9999, f"DP encode bf16 cosine >= 0.9999 ({cos.min()})")
+            dp_row["bf16_min_cosine"] = float(cos.min())
+        one.close()
+        dp.close()
+    row = {"phase": "sharded", "exact": exact, "sq8": sq8_row, "ivf": ivf_row,
+           "engine": engine_row, "dp_encode": dp_row,
+           "launches": {n: v for n, v in counted.items() if v},
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    for name in ("block", "tree", "sq8"):
+        check(counted[name] > 0, f"the {name} kernel ran on the sharded path")
+    return counted
 
 
 def openai_resnet_state_dict(spec, seed: int) -> dict:
@@ -2311,14 +2607,16 @@ def main() -> int:
         rows[("stream", dname, k)] = row
     dense_topk_times(topk)
     variant_launches = sq8_split_path(topk)
-    launches, train_launches = main_path(topk, search)
-    launches["sq8_variant"] = variant_launches
-    f32_launches = f32_search_path(topk, search)
-    launches["tree_f32"], launches["block_f32"] = (f32_launches["tree_f32"],
-                                                   f32_launches["block_f32"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        ivf_phase(search, Path(tmp))
-        rn50_launches = resnet_phase(topk, search, Path(tmp))
+        work = Path(tmp)
+        launches, train_launches = main_path(topk, search, work)
+        launches["sq8_variant"] = variant_launches
+        f32_launches = f32_search_path(topk, search)
+        launches["tree_f32"], launches["block_f32"] = (f32_launches["tree_f32"],
+                                                       f32_launches["block_f32"])
+        ivf_phase(search, work)
+        sharded_launches = sharded_phase(topk, search, work)
+        rn50_launches = resnet_phase(topk, search, work)
     wide_kernel_checks(topk)
     # last, so the 51 GB it allocates and frees precede no timing
     block_grid_check(topk)
@@ -2336,6 +2634,8 @@ def main() -> int:
             # the train phase's (none: training runs no kernel of these)
             "launches_rn50": rn50_launches[key],
             "launches_train": train_launches[key],
+            # launches on the sharded phase's paths (parallel/ on one card)
+            "launches_sharded": sharded_launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -1,8 +1,8 @@
 """evossearch_tpu_torch — the PyTorch + CUDA port of evossearch_tpu.
 
 CLIP-based natural-language and image-to-image search over local photo
-folders, running on one NVIDIA GPU (Hopper, sm_90a) unless the caller
-asks for the CPU. ``evossearch_tpu`` (JAX) is the reference this package
+folders, running on NVIDIA GPUs (Hopper, sm_90a) unless the caller asks
+for the CPU. ``evossearch_tpu`` (JAX) is the reference this package
 is tested against; it never imports it.
 
 Layer map (bottom-up):
@@ -18,6 +18,8 @@ Layer map (bottom-up):
     ops/         hand-written CUDA top-k candidate kernels + merge glue
     index/       memory-mapped embedding shard store, builder, exact
                  search, SQ8 and IVF tiers
+    parallel/    corpus sharding: row blocks over a list of devices, each
+                 searched by the single-device route, merged on the host
     server/      stdlib WSGI micro-framework + HTTP API + SPA frontend
     utils/       structured logging, timing, torch.profiler hooks
     __main__     the CLI (python -m evossearch_tpu_torch)

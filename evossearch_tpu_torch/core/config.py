@@ -169,14 +169,17 @@ class Config:
         # never fit route to the host scanner instead of crashing
         # mid-request out of device memory. -1 = unlimited.
         self.HBM_BUDGET_MB = _env_int("EVOSSEARCH_HBM_BUDGET_MB", "0")
-        # Exact-search kernel: auto | xla | pallas | host (| sharded, not
-        # ported yet).
-        #   auto    = best: the CUDA candidate kernels for GPU corpora of
-        #             >= 2^18 rows, the dense exact path below that and on
-        #             the CPU (index.search.best_exact_search_batch)
+        # Exact-search kernel: auto | xla | pallas | host | sharded.
+        #   auto    = sharded with more than one visible card, else best:
+        #             the CUDA candidate kernels for GPU corpora of >= 2^18
+        #             rows, the dense exact path below that and on the CPU
+        #             (index.search.best_exact_search_batch)
         #   xla     = dense exact product + stable selection (device)
         #   pallas  = the CUDA candidate kernels for every shape they take
         #   host    = exact numpy scan over the mmap store
+        #   sharded = the corpus row-sharded over MESH_DEVICES cards, each
+        #             block on best's route, merged on the host
+        #             (parallel.ShardedIndex)
         self.SEARCH_KERNEL = os.getenv("EVOSSEARCH_SEARCH_KERNEL", "auto")
         # Auto-migrate reference-format .clip_index dirs (FAISS + pickles)
         # to the shard store on first access.

@@ -1,12 +1,16 @@
 """SearchEngine — the engine layer tying tokenizer, CLIP towers, the fused
 preprocess and the shard store into the operations the HTTP layer needs.
 PyTorch counterpart of ``evossearch_tpu/engine.py`` (exact search on one
-device, or the IVF index under ``INDEX_KIND=ivf``; for over-budget corpora
-the host IVF probe of a persisted sidecar, the SQ8 capacity tier on the
-device, else the host scan).
+device or row-sharded over every visible card, or the IVF index under
+``INDEX_KIND=ivf``; for over-budget corpora the host IVF probe of a
+persisted sidecar, the SQ8 capacity tier on the device or the mesh, else
+the host scan).
 
-  * the engine runs on one device, ``"cuda"`` unless the caller passes
-    ``device="cpu"``; with no GPU and no explicit device it raises;
+  * the engine runs on ``"cuda"`` unless the caller passes
+    ``device="cpu"``; with no GPU and no explicit device it raises. With
+    more than one visible card, ``SEARCH_KERNEL=auto`` shards each corpus
+    over them (``parallel/``, the ``sharded`` kernel) and ``DP_ENCODE``
+    splits each indexing batch across them;
   * encoders run batched, padded to power-of-two buckets;
   * loaded indexes are cached on the device keyed by manifest mtime, under
     a device-memory budget with LRU eviction;
@@ -19,13 +23,13 @@ device, else the host scan).
     a reduced DCT scale (``FAST_DECODE``) into planar 4:2:0 planes that
     the device converts to RGB (``PLANAR_JPEG``), Pillow otherwise.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the sharded kernel and data-parallel encode (with them the
-mesh-sharded SQ8 and IVF tiers).
+The whole engine is ported; the mesh half of training (``train/``) is
+not.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
 import os
@@ -60,11 +64,9 @@ IVF_ON_GPU_WARNING = (
 
 _UNSET = object()  # lock-free "not initialized" sentinel (batchers, SQ8)
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to evossearch_tpu_torch yet (ROADMAP {item})"
-    )
+# Cache-entry fields holding a folder's device state, each charged to the
+# entry's device_bytes and dropped together on eviction.
+_DEVICE_TIERS = ("emb", "sharded", "ivf", "sharded_ivf", "sq8")
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -117,16 +119,6 @@ class SearchEngine:
         randomly."""
         self.cfg = cfg or default_config
         self.device = resolve_device(device)
-        if self.cfg.SEARCH_KERNEL == "sharded":
-            raise _not_ported("SEARCH_KERNEL=sharded", "A13")
-        if (
-            self.cfg.SEARCH_KERNEL == "auto" and self.cfg.DP_ENCODE
-            and self.device.type == "cuda" and torch.cuda.device_count() > 1
-        ):
-            raise _not_ported(
-                "multi-GPU search and data-parallel encode (set "
-                "CUDA_VISIBLE_DEVICES to one card)", "A13",
-            )
         if spec is None and self.cfg.CLIP_MODEL not in CLIP_MODEL_SPECS:
             raise ValueError(
                 f"unknown CLIP model {self.cfg.CLIP_MODEL!r} "
@@ -141,6 +133,7 @@ class SearchEngine:
             params = params_from_numpy(params, self.spec, self.device)
         self._params = None if params is None else params.to(self.device)
         self._params_lock = threading.Lock()
+        self._replicas: dict = {}  # device -> a copy of the towers (DP encode)
         if params is None and self.cfg.CHECKPOINT_PATH:
             # eager: the checkpoint may carry another architecture, and
             # loading overwrites self.spec, which index manifests capture
@@ -214,17 +207,19 @@ class SearchEngine:
         t = torch.as_tensor(np.asarray(tokens), device=self.device)
         return encode_text(self.params, t, self._compute_dtype)
 
-    def _prep_encode(self, canvases, a_h_u, a_w_u, size_idx) -> torch.Tensor:
-        """Fused resample + crop + normalize + image tower on the device."""
+    def _prep_encode(self, params, canvases, a_h_u, a_w_u,
+                     size_idx) -> torch.Tensor:
+        """Fused resample + crop + normalize + image tower (``params``, on
+        the inputs' device)."""
         from .models import encode_image
         from .preprocess import device_preprocess_indexed
 
         x = device_preprocess_indexed(
             canvases, a_h_u, a_w_u, size_idx, out_dtype=self._compute_dtype
         )
-        return encode_image(self.params, x, self._compute_dtype)
+        return encode_image(params, x, self._compute_dtype)
 
-    def _prep_encode_planar(self, y, c, a_h_y, a_w_y, a_h_c, a_w_c,
+    def _prep_encode_planar(self, params, y, c, a_h_y, a_w_y, a_h_c, a_w_c,
                             size_idx) -> torch.Tensor:
         """Planar twin of _prep_encode: chroma-upsampling resample +
         YCbCr->RGB + normalize + image tower, fed by the native planar JPEG
@@ -236,17 +231,40 @@ class SearchEngine:
             y, c, a_h_y, a_w_y, a_h_c, a_w_c, size_idx,
             out_dtype=self._compute_dtype,
         )
-        return encode_image(self.params, x, self._compute_dtype)
+        return encode_image(params, x, self._compute_dtype)
+
+    @functools.cached_property
+    def _encode_devices(self) -> list | None:
+        """The devices of data-parallel indexing encode: every visible card
+        when DP_ENCODE is on and there is more than one, else None (the
+        engine's device alone)."""
+        from .parallel import mesh
+
+        devices = mesh.available_devices(self.device)
+        return devices if self.cfg.DP_ENCODE and len(devices) > 1 else None
+
+    def _replica(self, device: torch.device):
+        """The towers on ``device``: the engine's own module on its device,
+        one copy per other device, made at first use."""
+        params = self.params
+        if device == self.device:
+            return params
+        with self._params_lock:
+            rep = self._replicas.get(device)
+            if rep is None:
+                rep = self._replicas[device] = copy.deepcopy(params).to(device)
+            return rep
 
     @property
     def _index_batch(self) -> int:
         """Images per encode in the indexing pipeline (and the bucket cap)."""
         return self.cfg.INDEX_BATCH or max(self.cfg.BATCH_SIZE, 128)
 
-    def _device_mats(self, mats: tuple) -> tuple:
+    def _device_mats(self, mats: tuple, device: torch.device) -> tuple:
         """Device-resident LRU of per-batch resample matrices, keyed by
-        content: a homogeneous folder ships identical stacks every batch."""
-        key = tuple(
+        device and content: a homogeneous folder ships identical stacks
+        every batch."""
+        key = (device,) + tuple(
             (m.shape, hashlib.blake2b(m.tobytes(), digest_size=16).digest())
             for m in mats
         )
@@ -255,7 +273,7 @@ class SearchEngine:
             if cached is not None:
                 self._mat_cache.move_to_end(key)
                 return cached
-        out = tuple(torch.from_numpy(m).to(self.device) for m in mats)
+        out = tuple(torch.from_numpy(m).to(device) for m in mats)
         with self._mat_cache_lock:
             self._mat_cache[key] = out
             self._mat_cache.move_to_end(key)
@@ -267,18 +285,24 @@ class SearchEngine:
                               size_idx: np.ndarray, fetch: bool, encode):
         """The bucket padding and two-in-flight pipeline shared by
         encode_prepared (one RGB canvas) and encode_prepared_planar (luma
-        and chroma canvases); ``encode(canvas_tensors, mat_tensors, idx)``
-        queues one bucket's fused preprocess + encode on the device.
+        and chroma canvases); ``encode(params, canvas_tensors,
+        mat_tensors, idx)`` queues one bucket's fused preprocess + encode
+        on the device the tensors lie on.
 
-        Two buckets in flight: bucket i+1's upload and encode are queued
-        before bucket i is copied back. ``fetch=False`` returns a
+        Under data-parallel encode each bucket is padded to a multiple of
+        the device count and split into equal contiguous chunks, each
+        encoded on its device and gathered to the engine's device in
+        order. Two buckets in flight: bucket i+1's upload and encode are
+        queued before bucket i is copied back. ``fetch=False`` returns a
         :class:`PendingEmbeddings` whose ``resolve()`` does the
         device->host copy later."""
         n = canvases[0].shape[0]
         if n == 0:
             empty = np.zeros((0, self.spec.embed_dim), np.float32)
             return empty if fetch else PendingEmbeddings([], 0, self)
+        devices = self._encode_devices or [self.device]
         b = _bucket(n, max(self._index_batch, 1))
+        b = -(-b // len(devices)) * len(devices)  # equal rows per device
         if n < b or n % b:
             pad = -(-n // b) * b - n
             canvases = tuple(
@@ -286,19 +310,22 @@ class SearchEngine:
                 for c in canvases
             )
             size_idx = np.concatenate([size_idx, np.zeros(pad, size_idx.dtype)])
-        mats_d = self._device_mats(mats)
+        per = b // len(devices)
+        mats_d = {dev: self._device_mats(mats, dev) for dev in dict.fromkeys(devices)}
         out = []
         in_flight: list = []
         with self.timers.stage("prep_encode"):
             for start in range(0, canvases[0].shape[0], b):
-                sl = slice(start, start + b)
-                batches = tuple(c[sl] for c in canvases)
-                self.counters.add(
-                    "upload_canvas_bytes", sum(int(c.nbytes) for c in batches)
-                )
-                cs = tuple(torch.from_numpy(c).to(self.device) for c in batches)
-                idx = torch.from_numpy(size_idx[sl]).to(self.device)
-                in_flight.append(encode(cs, mats_d, idx))
+                self.counters.add("upload_canvas_bytes", sum(
+                    int(c[start : start + b].nbytes) for c in canvases))
+                parts = []
+                for j, dev in enumerate(devices):
+                    sl = slice(start + j * per, start + (j + 1) * per)
+                    cs = tuple(torch.from_numpy(c[sl]).to(dev) for c in canvases)
+                    idx = torch.from_numpy(size_idx[sl]).to(dev)
+                    parts.append(encode(self._replica(dev), cs, mats_d[dev], idx)
+                                 .to(self.device))
+                in_flight.append(parts[0] if len(parts) == 1 else torch.cat(parts))
                 if fetch and len(in_flight) >= 2:
                     out.append(in_flight.pop(0).cpu().numpy())
             if not fetch:
@@ -317,7 +344,8 @@ class SearchEngine:
         bucket size (``fetch=False``: see _encode_prepared_impl)."""
         return self._encode_prepared_impl(
             (canvases,), (a_h_u, a_w_u), size_idx, fetch,
-            lambda cs, mats, idx: self._prep_encode(cs[0], *mats, idx),
+            lambda params, cs, mats, idx: self._prep_encode(
+                params, cs[0], *mats, idx),
         )
 
     def encode_prepared_planar(
@@ -332,7 +360,8 @@ class SearchEngine:
         return self._encode_prepared_impl(
             (y_canvas, c_canvas), (a_h_y, a_w_y, a_h_c, a_w_c), size_idx,
             fetch,
-            lambda cs, mats, idx: self._prep_encode_planar(*cs, *mats, idx),
+            lambda params, cs, mats, idx: self._prep_encode_planar(
+                params, *cs, *mats, idx),
         )
 
     @staticmethod
@@ -530,9 +559,33 @@ class SearchEngine:
         return entry, reader
 
     def _resolve_kernel(self) -> str:
-        """auto -> best (one device); xla | pallas | host as configured."""
+        """auto -> sharded with more than one visible device, else best;
+        xla | pallas | host | sharded as configured."""
         kind = self.cfg.SEARCH_KERNEL
-        return "best" if kind == "auto" else kind
+        if kind != "auto":
+            return kind
+        from .parallel import mesh
+
+        return "sharded" if len(mesh.available_devices(self.device)) > 1 else "best"
+
+    def _corpus_mesh(self):
+        """The mesh of the sharded kernel: the first MESH_DEVICES (0 = all)
+        of the devices visible to the engine."""
+        from .parallel import corpus_mesh, mesh
+
+        return corpus_mesh(self.cfg.MESH_DEVICES, mesh.available_devices(self.device))
+
+    def _per_device_need(self, need: int) -> int:
+        """Device bytes per device of a corpus-sized tensor under the
+        resolved kernel: the budget is per device, and the sharded kernel
+        splits its tensors over the mesh. Divides by MESH_DEVICES as set
+        (not by the devices that exist), as the JAX package does."""
+        if self._resolve_kernel() != "sharded":
+            return need
+        from .parallel import mesh
+
+        return need // max(
+            self.cfg.MESH_DEVICES or len(mesh.available_devices(self.device)), 1)
 
     # -- micro-batched serving path --
 
@@ -607,10 +660,7 @@ class SearchEngine:
                 entries[key] = {
                     "device_bytes": e.get("device_bytes", 0),
                     "fits_device": e.get("fits_device"),
-                    "tiers": [
-                        f for f in ("emb", "ivf", "sq8")
-                        if e.get(f) is not None
-                    ],
+                    "tiers": [f for f in _DEVICE_TIERS if e.get(f) is not None],
                 }
         return {
             "budget_bytes": budget,
@@ -624,23 +674,25 @@ class SearchEngine:
 
     def _fits_device(self, entry, reader) -> bool:
         """Whether this corpus may ever be materialized on the device;
-        cached per entry, the over-budget verdict logged once. IVF counts
-        (1 + bucket_factor) x the corpus at the store dtype (dense buckets
-        and spill)."""
+        cached per entry, the over-budget verdict logged once. The budget
+        is per device, so the sharded kernel divides the corpus bytes by
+        the mesh size; IVF counts (1 + bucket_factor) x the corpus at the
+        store dtype (dense buckets and spill)."""
         fits = entry.get("fits_device")
         if fits is None:
             budget = self._hbm_budget
             need = self._corpus_device_bytes(reader)
             if self.cfg.INDEX_KIND == "ivf":
                 need *= 3
+            need = self._per_device_need(need)
             fits = budget is None or need <= budget
             if not fits:
                 log.warning(
                     "corpus of %d rows (%.2f GB %s) exceeds the device "
                     "budget (%.2f GB) — routing queries to the SQ8 device "
                     "tier (certified int8 sidecar) or the host mmap "
-                    "scanner; raise EVOSSEARCH_HBM_BUDGET_MB to search this "
-                    "folder at full dtype on device",
+                    "scanner; raise EVOSSEARCH_HBM_BUDGET_MB or shard over "
+                    "more cards to search this folder at full dtype on device",
                     reader.count, need / 2**30, reader.dtype_name,
                     budget / 2**30,
                 )
@@ -668,7 +720,7 @@ class SearchEngine:
                 if not other["lock"].acquire(blocking=False):
                     continue
                 try:
-                    for field in ("emb", "ivf", "sq8"):
+                    for field in _DEVICE_TIERS:
                         other.pop(field, None)
                     total -= other["device_bytes"]
                     other["device_bytes"] = 0
@@ -683,24 +735,41 @@ class SearchEngine:
         with self._cache_lock:
             entry["device_bytes"] = max(0, entry.get("device_bytes", 0) - need)
 
-    def _entry_emb(self, entry, reader) -> torch.Tensor:
-        """The folder's corpus on the device (bf16 stores as bfloat16),
-        materialized once per cache entry. Readers keep a local reference:
-        eviction pops the key without the reader holding a lock."""
-        emb = entry.get("emb")
-        if emb is None:
+    def _materialize(self, entry, field: str, need: int, make):
+        """``entry[field]``, made once per cache entry by ``make()`` under
+        the entry's lock, its ``need`` device bytes reserved first (colder
+        folders are evicted before anything lands on the device) and
+        released if ``make`` fails. Readers keep a local reference:
+        eviction pops the field without the reader holding a lock."""
+        value = entry.get(field)
+        if value is None:
             with entry["lock"]:
-                emb = entry.get("emb")
-                if emb is None:
-                    need = self._corpus_device_bytes(reader)
+                value = entry.get(field)
+                if value is None:
                     self._reserve_device_bytes(entry, need)
                     try:
-                        emb = self._to_device(reader)
+                        value = make()
                     except BaseException:
                         self._release_device_bytes(entry, need)
                         raise
-                    entry["emb"] = emb
-        return emb
+                    entry[field] = value
+        return value
+
+    def _entry_emb(self, entry, reader) -> torch.Tensor:
+        """The folder's corpus on the device (bf16 stores as bfloat16)."""
+        return self._materialize(entry, "emb", self._corpus_device_bytes(reader),
+                                 lambda: self._to_device(reader))
+
+    def _entry_sharded(self, entry, reader):
+        """The folder's corpus row-sharded over the mesh, each block read
+        straight off the store onto its device (no whole-corpus host
+        copy); the budget is per device."""
+        from .parallel import ShardedIndex
+
+        mesh = self._corpus_mesh()
+        return self._materialize(
+            entry, "sharded", self._corpus_device_bytes(reader) // mesh.size,
+            lambda: ShardedIndex.from_reader(reader, mesh=mesh))
 
     def _to_device(self, reader) -> torch.Tensor:
         """Copy the store's shards into one (count, dim) device tensor."""
@@ -721,22 +790,48 @@ class SearchEngine:
 
     def _entry_ivf(self, entry, reader):
         """The folder's IVF index on the device, loaded from its sidecar or
-        built once per cache entry. The device bytes, about (1 +
-        bucket_factor) x the corpus, are reserved before the load or
-        build, which both put corpus-sized tensors on the device."""
-        ivf = entry.get("ivf")
+        built, about (1 + bucket_factor) x the corpus of device bytes."""
+        return self._materialize(entry, "ivf", 3 * self._corpus_device_bytes(reader),
+                                 lambda: self._load_or_build_ivf(entry, reader))
+
+    def _entry_ivf_any(self, entry, reader):
+        """The IVF of the resolved kernel: the mesh-sharded one under
+        ``sharded``, the one-device one otherwise (the same search
+        contract)."""
+        if self._resolve_kernel() == "sharded":
+            return self._entry_sharded_ivf(entry, reader)
+        return self._entry_ivf(entry, reader)
+
+    def _entry_sharded_ivf(self, entry, reader):
+        """The folder's mesh-sharded IVF, loaded or built, about
+        (1 + bucket_factor) x the corpus over the mesh per device."""
+        mesh = self._corpus_mesh()
+        return self._materialize(
+            entry, "sharded_ivf", 3 * self._corpus_device_bytes(reader) // mesh.size,
+            lambda: self._load_or_build_sharded_ivf(entry, reader, mesh))
+
+    def _load_or_build_sharded_ivf(self, entry, reader, mesh):
+        """The mesh-sharded IVF with its own sidecar, ``ivf_mesh{S}.npz``
+        (the block layout is specific to the mesh size, which
+        ShardedIVFIndex.load checks), under the one-device sidecar's
+        staleness rules."""
+        from .parallel import ShardedIVFIndex
+
+        ivf_path = reader.root / f"ivf_mesh{mesh.size}.npz"
+        ivf = self._load_ivf_sidecar(
+            ivf_path, entry, reader,
+            lambda p: ShardedIVFIndex.load(p, mesh=mesh),
+        )
         if ivf is None:
-            with entry["lock"]:
-                ivf = entry.get("ivf")
-                if ivf is None:
-                    need = 3 * self._corpus_device_bytes(reader)
-                    self._reserve_device_bytes(entry, need)
-                    try:
-                        ivf = self._load_or_build_ivf(entry, reader)
-                    except BaseException:
-                        self._release_device_bytes(entry, need)
-                        raise
-                    entry["ivf"] = ivf
+            ivf = ShardedIVFIndex.build(
+                reader.embeddings(), mesh=mesh, nlist=self.cfg.IVF_NLIST,
+                pre_normalized=True,
+            )
+            self.counters.add("ivf_builds")
+            try:
+                ivf.save(ivf_path)
+            except OSError:
+                pass  # persistence is an optimization only
         return ivf
 
     def _load_or_build_ivf(self, entry, reader):
@@ -844,7 +939,9 @@ class SearchEngine:
                 return sq8
             from .index.sq8 import SQ8Index
 
-            need = reader.count * (reader.dim + 8)
+            # the sharded kernel row-shards the sidecar over the mesh
+            # (SQ8ShardedIndex); the budget is per device
+            need = self._per_device_need(reader.count * (reader.dim + 8))
             budget = self._hbm_budget
             if not (
                 self.cfg.SQ8 != "off"
@@ -904,9 +1001,16 @@ class SearchEngine:
         a device failure the folder keeps serving via the host scan.
         Caller holds entry['lock']."""
         sq8.counters = self.counters  # uncertified fallbacks -> /stats
+        if self._resolve_kernel() == "sharded":
+            from .parallel import SQ8ShardedIndex
+
+            sq8 = SQ8ShardedIndex(sq8, self._corpus_mesh())
+            materialize = sq8.ensure_device
+        else:
+            materialize = functools.partial(sq8.ensure_device, self.device)
         self._reserve_device_bytes(entry, need)
         try:
-            sq8.ensure_device(self.device)
+            materialize()
         except Exception as e:
             self._release_device_bytes(entry, need)
             log.warning("SQ8 device materialization failed (%s) — "
@@ -1081,12 +1185,14 @@ class SearchEngine:
         )
 
         if self.cfg.INDEX_KIND == "ivf":
-            return self._entry_ivf(entry, reader).search_batch(
+            return self._entry_ivf_any(entry, reader).search_batch(
                 queries, k, nprobe=self.cfg.IVF_NPROBE
             )
         kernel = self._resolve_kernel()
         if kernel == "host":
             return self._host_search_batch(queries, reader, k)
+        if kernel == "sharded":
+            return self._entry_sharded(entry, reader).search_batch(queries, k)
         fn = {
             "pallas": pallas_search_batch,
             "best": best_exact_search_batch,
@@ -1117,7 +1223,7 @@ class SearchEngine:
                 # a first-touch build (k-means over the whole corpus) runs
                 # in this request thread, not in the batcher's worker,
                 # where it would hold up every other folder's searches
-                self._entry_ivf(entry, reader)
+                self._entry_ivf_any(entry, reader)
             elif self._resolve_kernel() == "host":
                 batcher = None
             else:

@@ -11,8 +11,10 @@ optax's order, so its state is optax's ``ScaleByAdamState(count, mu, nu)``
 one to one.
 
 The mesh half of the JAX module (``train_mesh``, ``clip_param_specs``,
-``clip_param_shardings``, ``batch_shardings``) waits for the port's
-``parallel/`` (ROADMAP A13).
+``clip_param_shardings``, ``batch_shardings``) is the training half of
+ROADMAP A13, the next slice: ``parallel/`` holds only the search half,
+and a sharded training state needs a checkpoint format of its own
+(orbax, which the JAX package writes it with, imports JAX).
 """
 
 from __future__ import annotations

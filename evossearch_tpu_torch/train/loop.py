@@ -140,8 +140,8 @@ def fit(
     epoch 0. ``device`` as ``core.device.resolve_device`` resolves it."""
     if mesh is not None:
         raise NotImplementedError(
-            "fit(mesh=...): sharded training waits for the port's parallel/ "
-            "(ROADMAP A13); the port trains on one device"
+            "fit(mesh=...): sharded training is the training half of ROADMAP "
+            "A13, not ported yet; the port trains on one device"
         )
     device = resolve_device(device)
     ckpt = Path(checkpoint_dir) / "clip.npz" if checkpoint_dir else None

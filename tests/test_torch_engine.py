@@ -182,18 +182,6 @@ def test_over_budget_folder_takes_host_scan(setup, tmp_path):
     sq8.close()
 
 
-@pytest.mark.parametrize("env,item", [
-    # the mesh-sharded IVF (parallel/sharded_ivf.py); IVF on one device is
-    # ported (tests/test_torch_ivf.py)
-    ({"EVOSSEARCH_INDEX_KIND": "ivf", "EVOSSEARCH_SEARCH_KERNEL": "sharded"}, "A13"),
-    ({"EVOSSEARCH_SEARCH_KERNEL": "sharded"}, "A13"),
-])
-def test_unported_tiers_raise(env, item, tmp_path):
-    cfg, _ = _configs(tmp_path, "", **env)
-    with pytest.raises(NotImplementedError, match=item):
-        SearchEngine(cfg=cfg, spec=TINY, device="cpu")
-
-
 def test_no_gpu_needs_explicit_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")

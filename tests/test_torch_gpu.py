@@ -612,3 +612,109 @@ def test_matmul_f32_cuda_backward_matches_the_widened_product(shape_b):
         grads.append([t.detach().float().cpu() for t in (out, a.grad, b.grad)])
     for want, got in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_sharded_search_on_gpu_equals_single_device():
+    """Row blocks on one card ([cuda:0] * S) against the single-device
+    route on exact-dot rows: bit for bit. S = 2 gives blocks of 2^18 rows
+    and more (the kernels), S = 3 smaller ones (the dense path)."""
+    _need_gpu()
+    from evossearch_tpu_torch.parallel import ShardedIndex, corpus_mesh
+
+    emb, q = _exact_inputs(61, 600_000, 128, 9)
+    for dtype in DTYPES.values():
+        e = emb.to(dtype).cuda()
+        want = search.best_exact_search_batch(e, q, 48)
+        for s in (2, 3):
+            sh = ShardedIndex.from_matrix(e, mesh=corpus_mesh(devices=["cuda:0"] * s))
+            before = dict(topk.LAUNCHES)
+            got = sh.search_batch(q, 48)
+            launched = sum(topk.LAUNCHES[k] - before[k] for k in ("block", "tree"))
+            assert launched == (s if s == 2 else 0)
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_sharded_sq8_on_gpu_equals_one_device(tmp_path):
+    """The SQ8 tier on four row blocks of one card: B3 once per block, the
+    one-device tier's ids and scores."""
+    _need_gpu()
+    from evossearch_tpu_torch.index.sq8 import SQ8Index
+    from evossearch_tpu_torch.index.store import IndexReader, IndexWriter
+    from evossearch_tpu_torch.parallel import SQ8ShardedIndex, corpus_mesh
+
+    rng = np.random.default_rng(62)
+    emb = rng.standard_normal((50_001, 256)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    w = IndexWriter.create(tmp_path, model="t", dim=256)
+    paths = [f"p{i}.jpg" for i in range(len(emb))]
+    w.append(emb, paths, [{"path": p, "mtime": 1.0, "size": 1} for p in paths])
+    w.finalize()
+    base = SQ8Index.build_from_reader(IndexReader.open(tmp_path), fetch=128)
+    base.tile_rows = 512
+    base.ensure_device("cuda")
+    sharded = SQ8ShardedIndex(base, corpus_mesh(devices=["cuda:0"] * 4))
+    q = emb[:5] + 0.01 * rng.standard_normal((5, 256)).astype(np.float32)
+    before = topk.LAUNCHES["sq8"]
+    s, i = sharded.search_batch(q, 20)
+    assert topk.LAUNCHES["sq8"] - before == 4
+    s1, i1 = base.search_batch(q, 20)
+    np.testing.assert_array_equal(i, i1)
+    np.testing.assert_array_equal(s, s1)
+    assert (i[:, 0] == np.arange(5)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_sharded_ivf_on_gpu_matches_cpu(dtype, tmp_path):
+    """One ivf_mesh4.npz searched on four blocks of the card and of the
+    CPU: the same ids but where a near-tie may order by summation, scores
+    within 1e-5."""
+    _need_gpu()
+    from evossearch_tpu_torch.index.store import bf16_bits
+    from evossearch_tpu_torch.parallel import ShardedIVFIndex, corpus_mesh
+
+    rng = np.random.default_rng(63)
+    centers = rng.standard_normal((50, 128))
+    emb = centers[rng.integers(0, 50, 20_000)] + 0.3 * rng.standard_normal((20_000, 128))
+    emb = (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32)
+    rows = bf16_bits(emb) if dtype == "bf16" else emb
+    cpu = ShardedIVFIndex.build(rows, mesh=corpus_mesh(devices=["cpu"] * 4), nlist=64)
+    cpu.save(tmp_path / "ivf_mesh4.npz")
+    gpu = ShardedIVFIndex.load(tmp_path / "ivf_mesh4.npz",
+                               mesh=corpus_mesh(devices=["cuda:0"] * 4))
+    assert gpu.buckets[0].is_cuda and gpu.buckets[0].dtype == DTYPES[dtype]
+    q = emb[:16] + 0.05 * rng.standard_normal((16, 128)).astype(np.float32)
+    for nprobe in (0, 64):
+        s, i = cpu.search_batch(q, 48, nprobe)
+        gs, gi = gpu.search_batch(q, 48, nprobe)
+        np.testing.assert_allclose(gs, s, rtol=0, atol=1e-5)
+        clear = np.ones_like(s, bool)
+        gap = np.abs(np.diff(s, axis=1)) > 1e-5
+        clear[:, 1:] &= gap
+        clear[:, :-1] &= gap
+        np.testing.assert_array_equal(gi[clear], i[clear])
+
+
+@pytest.mark.gpu
+def test_dp_encode_on_gpu_matches_single_device(tmp_path):
+    """Data-parallel encode over [cuda:0, cuda:0] (two chunks of every
+    bucket) against the single-device encode, f32."""
+    _need_gpu()
+    from evossearch_tpu_torch.core import Config
+    from evossearch_tpu_torch.engine import SearchEngine
+
+    spec = _train_spec()
+    cfg = Config(env_path=tmp_path / "missing.env")
+    cfg.COMPUTE_DTYPE = "float32"
+    one = SearchEngine(cfg=cfg, spec=spec, device="cuda")
+    dp = SearchEngine(cfg=cfg, spec=spec, params=one.params, device="cuda")
+    dp.__dict__["_encode_devices"] = [torch.device("cuda", 0)] * 2
+    rng = np.random.default_rng(64)
+    images = [rng.integers(0, 256, (50 + j, 70, 3), dtype=np.uint8) for j in range(11)]
+    np.testing.assert_allclose(dp.encode_images(images), one.encode_images(images),
+                               rtol=0, atol=1e-5)
+    one.close()
+    dp.close()

@@ -1,6 +1,7 @@
 """The port stands alone: no module of evossearch_tpu_torch, nor
 chip_smoke.py, imports JAX, the JAX package, or the third-party modules
-the GPU machine is not known to have (``regex``, ``ml_dtypes``), and none
+the GPU machine is not known to have (``regex``, ``ml_dtypes``, ``orbax``,
+which imports JAX), and none
 names the JAX package's native source directory or its built extension
 (the port builds its own copy of the C++ source)."""
 
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "evossearch_tpu", "regex", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "evossearch_tpu", "regex",
+             "ml_dtypes")
 FILES = sorted(
     p for p in (ROOT / "evossearch_tpu_torch").rglob("*.py")
     if "_build" not in p.parts  # kernel build outputs, not the package

@@ -87,7 +87,8 @@ def test_fit_resume_from_checkpoint(pair_folder, tmp_path):
 
 
 def test_fit_sharded_mesh(pair_folder):
-    """The mesh half of training waits for the port's parallel/."""
+    """The mesh half of training (the training half of A13) is not ported:
+    fit raises for a mesh."""
     ds = PairDataset(pair_folder, CLIPTokenizer(), TINY, batch_size=8, seed=2)
     with pytest.raises(NotImplementedError, match="A13"):
         fit(TINY, ds, epochs=1, learning_rate=1e-3, mesh=object(), device="cpu")

@@ -61,6 +61,16 @@ store), as users start the port:
     gradients against the CPU's, remat on against off, and step times and
     peak memory at batch 32 and 256 (launches counted: none of the
     kernels is on this path), after the paths above are freed;
+  * ``train_mesh``: the mesh half of training on the same folder and npz,
+    f32 with remat: one step at batch 32 on the (data, model) meshes
+    (4, 1), (2, 2) and (1, 4) over [cuda:0] * 4 against the one-device
+    step (loss, every gradient leaf by cosine, the largest parameter
+    difference and its leaf, step ms, peak memory), bf16 on (2, 2) by
+    cosine, ``fit`` on (2, 2) for an epoch resumed for one on one device,
+    ``save_sharded`` of the (2, 2) params and Adam state restored onto
+    (2, 2) and (4, 1) bit for bit, and ``index.search.exact_search`` of
+    single queries over the 1,048,576-row store (the tree kernel),
+    equal to the batch route's rows;
 
 then, before the last check, the slices that serve other settings:
 
@@ -106,8 +116,9 @@ variants have a ``kernel_check`` line), and ``tree_f32``, ``block_f32``
 and ``stream_f32`` the kernels' f32 paths; ``launches`` and
 ``launches_rn50`` count each kernel's launches by corpus dtype
 (``ops.topk.DTYPE_LAUNCHES``) on the main path and on the resnet phase's
-path, ``launches_sharded`` on the sharded phase's and ``launches_train``
-on the train phase's. The last line is
+path, ``launches_sharded`` on the sharded phase's, ``launches_train``
+on the train phase's and ``launches_train_mesh`` on the train_mesh
+phase's. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -1676,16 +1687,275 @@ def train_phase(topk, npz: Path, work: Path) -> dict:
     return row["launches"]
 
 
-def main_path(topk, search, work: Path) -> tuple[dict, dict]:
-    """The three paths, then the train phase from the npz they converted,
-    in ``work``, whose stores the sharded phase reads later; the paths'
-    engines and threads are freed before the train phase measures the
-    card's memory. Returns each kernel's launches on the paths and on the
-    train phase."""
+TRAIN_MESH_SHAPES = ((4, 1), (2, 2), (1, 4))  # (data, model) over [cuda:0] * 4
+TRAIN_MESH_LR = 1e-3  # the JAX package's rule for its sharded step is set at this rate
+TRAIN_MESH_LOSS_ATOL, TRAIN_MESH_PARAM_ATOL = 1e-5, 2e-5  # tests/test_train.py:70-72
+TRAIN_MESH_QUERIES = 3  # exact_search over the 1,048,576-row store
+
+
+def by_tree_key(named: dict) -> dict:
+    """Per-layer tensors by module name, stacked by the param pytree's key."""
+    from evossearch_tpu_torch.models.checkpoint import tree_key
+
+    out, layers = {}, {}
+    for name, t in named.items():
+        key, layer = tree_key(name)
+        if layer is None:
+            out[key] = t
+        else:
+            layers.setdefault(key, {})[layer] = t
+    for key, per_layer in layers.items():
+        out[key] = torch.stack([per_layer[i] for i in range(len(per_layer))])
+    return out
+
+
+def leaf_cosines(a: dict, b: dict) -> dict:
+    return {k: float(a[k].double().ravel() @ b[k].double().ravel()
+                     / (torch.linalg.norm(a[k].double()) * torch.linalg.norm(b[k].double())))
+            for k in b}
+
+
+def mesh_step_times(step, model, state, images, tokens) -> dict:
+    """The step's CUDA-event median of 5 after 2 warm-up steps, and the
+    peak memory allocated over them above what was held before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(model, state, images, tokens), reps=5, warmup=2)
+    return {"step_ms": ms, "pairs_per_s": images.shape[0] / ms * 1e3,
+            "allocated_before_bytes": base,
+            "peak_over_before_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def train_mesh_phase(topk, search, npz: Path, work: Path) -> dict:
+    """The mesh half of training (the rest of A13) at ViT-B/32 full width,
+    f32 with remat, on the train phase's caption folder and the converted
+    npz, with the launch counts set to 0 just before and read just after
+    exact_search (training runs none of the kernels):
+
+      * one step at batch TRAIN_BATCH on the (data, model) meshes
+        TRAIN_MESH_SHAPES over [cuda:0] * 4 against the one-device step on
+        the same weights and batch, TF32 off: the loss difference, the
+        cosine of every reduced gradient leaf to the one-device one, the
+        largest parameter difference after the step and its leaf, step
+        ms and peak memory; held to the JAX package's rule for its own
+        sharded step (loss within 1e-5, params within 2e-5 at lr 1e-3);
+      * one bf16 gradient on (2, 2) against the one-device bf16 one, by
+        cosine;
+      * ``fit`` on train_mesh(devices=[cuda:0] * 4, model_parallel=2) for
+        one epoch: a finite loss, its clip.npz in an engine, then one
+        epoch resumed on one device;
+      * save_sharded of the (2, 2) params and Adam state, load_sharded onto
+        (2, 2) and onto (4, 1), bit for bit, with bytes and seconds;
+      * ``index.search.exact_search`` of TRAIN_MESH_QUERIES queries over the
+        1,048,576-row store (B1), equal to best_exact_search_batch's rows.
+    Returns the kernels' launches on this phase's path."""
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS, Config
+    from evossearch_tpu_torch.engine import SearchEngine
+    from evossearch_tpu_torch.index.store import IndexReader
+    from evossearch_tpu_torch.models import load_params, params_from_numpy
+    from evossearch_tpu_torch.models.checkpoint import load_sharded, save_sharded
+    from evossearch_tpu_torch.parallel.sharded_search import reader_rows
+    from evossearch_tpu_torch.preprocess import device_preprocess_indexed
+    from evossearch_tpu_torch.tokenizer import load_tokenizer
+    from evossearch_tpu_torch.train import (
+        PairDataset,
+        ShardedAdamState,
+        ShardedCLIP,
+        clip_loss,
+        fit,
+        make_optimizer,
+        make_train_step,
+        train_mesh,
+    )
+    from evossearch_tpu_torch.train.sharded import reduce_gradients
+
+    zero_launches(topk)
+    t_phase = time.perf_counter()
+    spec = CLIP_MODEL_SPECS["ViT-B/32"]
+    tree, _ = load_params(npz)
+    folder = work / "pairs"
+    tokenizer = load_tokenizer(None)
+    batch = next(iter(PairDataset(folder, tokenizer, spec, batch_size=TRAIN_BATCH,
+                                  seed=SEED).epoch()))
+    canv, a_h, a_w, size_idx, tokens = (torch.from_numpy(np.asarray(x)).cuda() for x in batch)
+    images = device_preprocess_indexed(canv, a_h, a_w, size_idx)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is off for float32 products")
+    row = {"phase": "train_mesh", "model": spec.name, "batch": TRAIN_BATCH, "lr": TRAIN_MESH_LR,
+           "devices": "[cuda:0] * 4", "remat": True}
+
+    def grads_of(model, dtype):
+        """(loss, gradients by tree key on the card) of one backward pass."""
+        model.zero_grad()
+        loss = clip_loss(model, images, tokens, dtype, True)
+        loss.backward()
+        if isinstance(model, ShardedCLIP):
+            reduce_gradients(model)
+            return float(loss.detach()), model.gather_grads("cuda")
+        return float(loss.detach()), by_tree_key({n: p.grad for n, p in model.named_parameters()})
+
+    # the one-device reference: gradients (f32 and bf16), one step, its time
+    one = params_from_numpy(tree, spec, "cuda")
+    _, g_one = grads_of(one, torch.float32)
+    _, g_one_bf16 = grads_of(one, torch.bfloat16)
+    opt = make_optimizer(learning_rate=TRAIN_MESH_LR)
+    step = make_train_step(spec, opt)
+    state = opt.init(one)
+    loss_one = float(step(one, state, images, tokens))
+    p_one = {k: t.detach().clone() for k, t in by_tree_key(dict(one.named_parameters())).items()}
+    row["one_device"] = {"loss": loss_one, **mesh_step_times(step, one, state, images, tokens)}
+    del one, state
+    torch.cuda.empty_cache()
+
+    meshes, kept = [], None
+    for data, model_parallel in TRAIN_MESH_SHAPES:
+        mesh = train_mesh(devices=["cuda:0"] * 4, model_parallel=model_parallel)
+        sharded = ShardedCLIP.place(tree, mesh, spec)
+        loss_g, g = grads_of(sharded, torch.float32)
+        cos = leaf_cosines(g, g_one)
+        grad_diff = {k: float((g[k] - g_one[k]).abs().max()) for k in g_one}
+        del g
+        state = opt.init(sharded)
+        loss = float(step(sharded, state, images, tokens))
+        diffs = {k: float((leaf.gather("cuda") - p_one[k]).abs().max())
+                 for k, leaf in sharded.params.items()}
+        worst = max(diffs, key=diffs.get)
+        entry = {"shape": [data, model_parallel], "loss": loss, "loss_diff": abs(loss - loss_one),
+                 "grad_loss_diff": abs(loss_g - loss_one),
+                 "grad_cosine_min": min(cos.values()), "grad_cosine_min_leaf": min(cos, key=cos.get),
+                 "param_diff_max": diffs[worst], "param_diff_max_leaf": worst,
+                 # that leaf's gradient difference beside its magnitude
+                 "grad_diff_max_of_that_leaf": grad_diff[worst],
+                 "grad_abs_max_of_that_leaf": float(g_one[worst].abs().max()),
+                 **mesh_step_times(step, sharded, state, images, tokens)}
+        meshes.append(entry)
+        emit({"phase": "train_mesh_step", **entry})
+        check(entry["loss_diff"] < TRAIN_MESH_LOSS_ATOL
+              and entry["param_diff_max"] <= TRAIN_MESH_PARAM_ATOL,
+              f"the sharded step on {data}x{model_parallel} matches one device")
+        check(entry["grad_cosine_min"] >= 0.9999,
+              f"every reduced gradient leaf on {data}x{model_parallel} matches one device")
+        if (data, model_parallel) == (2, 2):
+            kept = sharded, state
+        del sharded, state
+        torch.cuda.empty_cache()
+    row["meshes"] = meshes
+
+    m22, s22 = kept
+    _, g_bf16 = grads_of(ShardedCLIP.place(tree, m22.mesh, spec), torch.bfloat16)
+    cos_b = leaf_cosines(g_bf16, g_one_bf16)
+    row.update(bf16_2x2_grad_cosine_min=min(cos_b.values()),
+               bf16_2x2_grad_cosine_min_leaf=min(cos_b, key=cos_b.get))
+    check(row["bf16_2x2_grad_cosine_min"] >= 0.99,
+          "the (2, 2) bf16 gradients match the one-device bf16 ones")
+    del g_bf16, g_one_bf16, g_one, p_one
+    torch.cuda.empty_cache()
+
+    # save_sharded / load_sharded of the (2, 2) run's params and Adam state
+    ckpt = work / "mesh_ckpt"
+    t0 = time.perf_counter()
+    save_sharded(ckpt, {"params": m22, "opt_state": s22})
+    row["save_sharded_s"] = time.perf_counter() - t0
+    row["save_sharded_bytes"] = sum(f.stat().st_size for f in ckpt.iterdir())
+    saved = {**{f"p/{k}": v for k, v in m22.params.items()},
+             **{f"mu/{k}": v for k, v in s22.mu.items()},
+             **{f"nu/{k}": v for k, v in s22.nu.items()}}
+    for model_parallel in (2, 1):
+        target = ShardedCLIP.abstract(spec, train_mesh(devices=["cuda:0"] * 4,
+                                                       model_parallel=model_parallel))
+        t0 = time.perf_counter()
+        got = load_sharded(ckpt, {"params": target,
+                                  "opt_state": ShardedAdamState.abstract(target)})
+        torch.cuda.synchronize()
+        name = f"load_sharded_{4 // model_parallel}x{model_parallel}_s"
+        row[name] = time.perf_counter() - t0
+        restored = {**{f"p/{k}": v for k, v in got["params"].params.items()},
+                    **{f"mu/{k}": v for k, v in got["opt_state"].mu.items()},
+                    **{f"nu/{k}": v for k, v in got["opt_state"].nu.items()}}
+        equal = got["opt_state"].count == s22.count and all(
+            torch.equal(shard, saved[key].gather("cuda")[leaf.sharding.index(leaf.shape, pos)])
+            for key, leaf in restored.items() for pos, shard in enumerate(leaf.shards))
+        check(equal, f"load_sharded onto {4 // model_parallel}x{model_parallel} is bit-equal")
+        del got, restored
+        torch.cuda.empty_cache()
+    del m22, s22, kept, saved
+    torch.cuda.empty_cache()
+
+    # fit on (2, 2) for one epoch, its clip.npz in an engine, one epoch
+    # resumed on one device
+    out = work / "train_mesh_out"
+    ds = PairDataset(folder, tokenizer, spec, batch_size=TRAIN_BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    model, history = fit(spec, ds, epochs=1, learning_rate=TRAIN_LR, params=tree,
+                         checkpoint_dir=out, log_every=1000,
+                         mesh=train_mesh(devices=["cuda:0"] * 4, model_parallel=2))
+    row.update(fit_2x2_s=time.perf_counter() - t0, fit_2x2_loss=history)
+    check(isinstance(model, ShardedCLIP) and len(history) == 1 and math.isfinite(history[0]),
+          "fit on the (2, 2) mesh ran an epoch with a finite loss")
+    del model
+    torch.cuda.empty_cache()
+    cfg = Config(env_path=work / "missing.env")
+    cfg.CHECKPOINT_PATH = str(out / "clip.npz")
+    eng = SearchEngine(cfg=cfg, device="cuda")
+    count = eng.index_folder(str(folder))
+    scores, _, _ = eng.search_text(str(folder), "a photo of a red circle", 8)
+    eng.close()
+    del eng
+    check(count == TRAIN_PAIRS and len(scores) == 8 and np.isfinite(scores).all(),
+          "an engine on the mesh run's clip.npz indexed the folder and answered /search")
+    t0 = time.perf_counter()
+    _, resumed = fit(spec, ds, epochs=1, learning_rate=TRAIN_LR, checkpoint_dir=out,
+                     resume=True, log_every=1000, device="cuda")
+    with np.load(out / "train_state.npz") as data:
+        after = (int(data["epoch"]), int(data["opt_0"]))
+    row.update(resume_one_device_s=time.perf_counter() - t0, resume_one_device_loss=resumed,
+               epoch_and_count_after_resume=after)
+    check(math.isfinite(resumed[0]) and after == (1, 2 * (TRAIN_PAIRS // TRAIN_BATCH)),
+          "the mesh run resumed on one device, its optimizer state restored")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # exact_search of single queries over the 1,048,576-row store (B1)
+    reader = IndexReader.open(work / "store_1048576")
+    emb = reader_rows(reader, 0, reader.count, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    queries = torch.nn.functional.normalize(
+        torch.randn(TRAIN_MESH_QUERIES, D, generator=gen, device="cuda"), dim=1)
+    singles = [search.exact_search(emb, q, Q) for q in queries]
+    torch.cuda.synchronize()
+    row["launches"] = launches = dict(topk.DTYPE_LAUNCHES)
+    want_s, want_i = search.best_exact_search_batch(emb, queries, Q)
+    row["exact_search"] = {
+        "n": reader.count, "k": Q, "queries": TRAIN_MESH_QUERIES,
+        "ids_equal": all(np.array_equal(i, want_i[r]) for r, (_, i) in enumerate(singles)),
+        "score_diff_max": max(float(np.abs(s - want_s[r]).max()) for r, (s, _) in enumerate(singles)),
+        "launches": {k: v for k, v in launches.items() if v}}
+    check(row["exact_search"]["ids_equal"] and row["exact_search"]["score_diff_max"] <= 1e-6,
+          "exact_search equals best_exact_search_batch's rows")
+    check(launches["tree"] == TRAIN_MESH_QUERIES and sum(launches.values()) == TRAIN_MESH_QUERIES,
+          "exact_search took the tree kernel once per query")
+    del emb
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches
+
+
+def main_path(topk, search, work: Path) -> tuple[dict, dict, dict]:
+    """The three paths, then the train and train_mesh phases from the npz
+    they converted, in ``work``, whose stores the sharded phase reads
+    later; the paths' engines and threads are freed before the train
+    phase measures the card's memory. Returns each kernel's launches on
+    the paths, on the train phase and on the train_mesh phase."""
     launches = run_main_path(topk, search, work)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, train_phase(topk, work / "ViT-B-32.npz", work)
+    train_launches = train_phase(topk, work / "ViT-B-32.npz", work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, train_launches, train_mesh_phase(topk, search, work / "ViT-B-32.npz", work)
 
 
 def run_main_path(topk, search, work: Path) -> dict:
@@ -2609,7 +2879,7 @@ def main() -> int:
     variant_launches = sq8_split_path(topk)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        launches, train_launches = main_path(topk, search, work)
+        launches, train_launches, train_mesh_launches = main_path(topk, search, work)
         launches["sq8_variant"] = variant_launches
         f32_launches = f32_search_path(topk, search)
         launches["tree_f32"], launches["block_f32"] = (f32_launches["tree_f32"],
@@ -2634,6 +2904,8 @@ def main() -> int:
             # the train phase's (none: training runs no kernel of these)
             "launches_rn50": rn50_launches[key],
             "launches_train": train_launches[key],
+            # launches on the train_mesh phase's path (its exact_search)
+            "launches_train_mesh": train_mesh_launches[key],
             # launches on the sharded phase's paths (parallel/ on one card)
             "launches_sharded": sharded_launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],

@@ -6,7 +6,7 @@ from .comments import (
     save_comments,
 )
 from .ivf import IVFIndex
-from .search import exact_search_batch
+from .search import exact_search, exact_search_batch
 from .store import IndexReader, IndexWriter, exists, index_dir, load_progress
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "get_image_comments",
     "load_comments",
     "save_comments",
+    "exact_search",
     "exact_search_batch",
     "IVFIndex",
     "IndexReader",

@@ -31,6 +31,10 @@ from .store import as_float32, bf16_bits
 DISPATCH_COUNTS = {"kernel": 0, "fetch": 0, "fallback": 0}
 
 
+def dispatch_counts_snapshot() -> dict:
+    return dict(DISPATCH_COUNTS)
+
+
 # Corpus rows from which the candidate kernels take over on the card.
 _FAST_PATH_MIN_ROWS = 1 << 18
 
@@ -167,6 +171,20 @@ def best_exact_search_batch(emb: torch.Tensor, queries, k: int):
     if emb.device.type != "cpu" and emb.shape[0] >= _FAST_PATH_MIN_ROWS:
         return pallas_search_batch(emb, queries, k)
     return exact_search_batch(emb, queries, k)
+
+
+def exact_search(emb: torch.Tensor, query, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Exact top-k by inner product of one query.
+
+    emb: (N, d) float32 or bfloat16 tensor (a float32 numpy array is taken
+    to the CPU). query: (d,) float32. Returns (scores (k,), indices (k,))
+    numpy arrays sorted by descending score, ties by lower row — the same
+    contract as FAISS index.search with a single query row. Routed as one
+    query row of ``best_exact_search_batch``: on the card, a corpus of
+    2^18 rows and up goes through the candidate kernels."""
+    emb = torch.as_tensor(emb)
+    s, i = best_exact_search_batch(emb, _as_queries(query, emb), k)
+    return s[0], i[0]
 
 
 # -- host scans over the store's mmap shards (over-budget corpora) --

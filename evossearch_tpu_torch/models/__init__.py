@@ -7,11 +7,13 @@ from .checkpoint import (
 )
 from .clip import (
     CLIP,
+    count_params,
     embed_image,
     embed_text,
     encode_image,
     encode_text,
     expected_param_count,
+    init_params,
 )
 from .convert import (
     from_hf_state_dict,
@@ -24,6 +26,7 @@ from .layers import TowerConfig, quick_gelu
 
 __all__ = [
     "CLIP",
+    "count_params",
     "expected_param_count",
     "embed_image",
     "embed_text",
@@ -33,6 +36,7 @@ __all__ = [
     "from_openai_state_dict",
     "infer_openai_resnet_spec",
     "infer_openai_spec",
+    "init_params",
     "load_checkpoint",
     "load_model",
     "load_params",

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..core.constants import CLIPModelSpec
+from ..core.device import resolve_device
 from .layers import (
     LayerNorm,
     TowerConfig,
@@ -127,6 +128,21 @@ class CLIP(nn.Module):
             t.proj.normal_(0.0, tw ** -0.5, generator=gen)
             init_tower_(t.blocks, t.cfg, gen)
         return self
+
+
+def init_params(spec: CLIPModelSpec, seed: int = 0,
+                device: str | torch.device | None = None) -> CLIP:
+    """A random-init :class:`CLIP` (OpenAI init scheme) from a torch
+    generator seeded with ``seed``, on ``device`` (None: the GPU, or a
+    raise without one). Its numbers differ from the JAX package's
+    ``init_params(jax.random.key(seed), spec)``."""
+    device = resolve_device(device)
+    return CLIP(spec).init_random_(torch.Generator().manual_seed(seed)).to(device)
+
+
+def count_params(model: CLIP) -> int:
+    """Elements over every parameter (the JAX package's leaf sizes)."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def expected_param_count(spec: CLIPModelSpec) -> int:

@@ -103,6 +103,28 @@ def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None):
     return y.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last dim in float32, cast back to ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + LN_EPS)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scaled dot-product attention of (B, H, T, hd) heads in the compute
+    dtype: float32 logits and softmax, output in the compute dtype."""
+    t, hd = q.shape[-2], q.shape[-1]
+    logits = matmul_f32(q, k.transpose(-1, -2)) * (hd ** -0.5)
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return matmul_f32(weights, v).to(q.dtype)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm in float32 regardless of the compute dtype."""
 
@@ -112,12 +134,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = x.dtype
-        x = x.float()
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
-        y = (x - mean) * torch.rsqrt(var + LN_EPS)
-        return (y * self.scale.float() + self.bias.float()).to(dtype)
+        return layer_norm(x, self.scale, self.bias)
 
 
 class Attention(nn.Module):
@@ -140,13 +157,7 @@ class Attention(nn.Module):
             a.reshape(b, t, self.heads, hd).transpose(1, 2)
             for a in qkv.split(w, dim=-1)
         )  # (B, H, T, hd)
-        logits = matmul_f32(q, k.transpose(-1, -2)) * (hd ** -0.5)
-        if self.causal:
-            keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-            logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-        weights = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = matmul_f32(weights, v).to(x.dtype)
-        out = out.transpose(1, 2).reshape(b, t, w)
+        out = attend(q, k, v, self.causal).transpose(1, 2).reshape(b, t, w)
         return _dense(out, self.wo, self.bo)
 
 

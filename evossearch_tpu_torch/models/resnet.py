@@ -228,6 +228,19 @@ class ModifiedResNet(nn.Module):
         return self.attnpool(x)
 
 
+@torch.no_grad()
+def encode_image_resnet(model, images: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.float32,
+                        normalize: bool = True) -> torch.Tensor:
+    """The ResNet image tower of a CLIP module whose spec is a
+    ``CLIPResNetSpec``: (B, image_size, image_size, 3) preprocessed ->
+    (B, embed_dim) float32, L2-normalized by default."""
+    if not isinstance(model.visual, ModifiedResNet):
+        raise ValueError(f"{model.spec.name} has no ResNet image tower")
+    emb = model.visual(images, compute_dtype)
+    return emb / torch.linalg.norm(emb, dim=-1, keepdim=True) if normalize else emb
+
+
 # -------------------------------------------------------------------- init
 # OpenAI's scheme, in place, from one torch.Generator (the numbers differ
 # from the JAX package's jax.random init).

@@ -7,8 +7,11 @@ from .pipeline import (
     planar_to_rgb_host,
     prepare_batch,
     prepare_batch_planar,
+    preprocess_batch,
+    preprocess_reference,
 )
 from .resize import (
+    chroma_resample_matrix,
     clip_resize_crop_chroma_matrices,
     clip_resize_crop_matrices,
     resample_matrix,
@@ -24,6 +27,9 @@ __all__ = [
     "planar_to_rgb_host",
     "prepare_batch",
     "prepare_batch_planar",
+    "preprocess_batch",
+    "preprocess_reference",
+    "chroma_resample_matrix",
     "clip_resize_crop_chroma_matrices",
     "clip_resize_crop_matrices",
     "resample_matrix",

@@ -24,10 +24,12 @@ import numpy as np
 import torch
 
 from ..core.constants import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from ..core.device import resolve_device
 from .resize import (
     clip_resize_crop_chroma_windowed,
     clip_resize_crop_windowed,
     resample_matrix,
+    resized_dims,
 )
 
 DEFAULT_MAX_SIDE = 1024
@@ -362,3 +364,48 @@ def prepare_batch_planar(
         a_h_c[u] = a_h_c[0]
         a_w_c[u] = a_w_c[0]
     return y_canvas, c_canvas, a_h_y, a_w_y, a_h_c, a_w_c, size_idx
+
+
+def preprocess_batch(images, target: int = 224, max_side: int = DEFAULT_MAX_SIDE,
+                     out_dtype: torch.dtype | None = None,
+                     device: str | torch.device | None = None) -> torch.Tensor:
+    """PIL images / (H, W, 3) uint8 arrays -> (B, target, target, 3)
+    preprocessed tensor on ``device`` (None: the GPU, or a raise without
+    one; pass ``"cpu"`` for the CPU).
+
+    Convenience wrapper over prepare_batch + the indexed device stage —
+    the same path the engine's fused preprocess+encode uses."""
+    arrays = []
+    for img in images:
+        if isinstance(img, np.ndarray):
+            arrays.append(img)
+        else:
+            if img.mode != "RGB":
+                img = img.convert("RGB")
+            arrays.append(np.asarray(img, dtype=np.uint8))
+    device = resolve_device(device)
+    parts = prepare_batch(arrays, target, max_side=max_side)
+    return device_preprocess_indexed(*(torch.from_numpy(a).to(device) for a in parts),
+                                     out_dtype=out_dtype)
+
+
+def preprocess_reference(image, target: int = 224) -> np.ndarray:
+    """Pure-host oracle path via PIL resize (reference-equivalent transform).
+
+    Mirrors CLIP's torchvision pipeline: PIL bicubic shorter-side resize,
+    center crop, scale to [0,1], normalize. Used for parity tests and as a
+    fallback for images PIL decodes but the device path cannot express.
+    """
+    from PIL import Image
+
+    if image.mode != "RGB":
+        image = image.convert("RGB")
+    rh, rw = resized_dims(image.height, image.width, target)
+    resized = image.resize((rw, rh), Image.Resampling.BICUBIC)
+    top = int(round((rh - target) / 2.0))
+    left = int(round((rw - target) / 2.0))
+    cropped = resized.crop((left, top, left + target, top + target))
+    arr = np.asarray(cropped, dtype=np.float32) / 255.0
+    mean = np.asarray(CLIP_IMAGE_MEAN, dtype=np.float32)
+    std = np.asarray(CLIP_IMAGE_STD, dtype=np.float32)
+    return (arr - mean) / std

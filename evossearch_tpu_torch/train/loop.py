@@ -1,18 +1,22 @@
 """Training loop: contrastive fine-tuning with checkpointing and retrieval
 eval — PyTorch counterpart of ``evossearch_tpu/train/loop.py``, on one
-device. Composes train/contrastive.py's step with train/data.py's loader
-and models/checkpoint.py persistence.
+device or on a (data, model) mesh. Composes train/contrastive.py's step
+with train/data.py's loader and models/checkpoint.py persistence.
 
 Both checkpoint files are the JAX package's, so either package resumes
-the other's run: ``clip.npz`` is ``save_params`` of the param pytree
-(blocks stacked into ``(L, ...)`` leaves), and ``train_state.npz`` holds
-optax's state leaves in ``jax.tree_util.tree_leaves`` order, ``opt_0``
-the int32 step count, then every ``mu`` leaf, then every ``nu`` leaf (the
-param tree's sorted-key order), and ``epoch`` (int64).
+the other's run, on one device or on a mesh: ``clip.npz`` is
+``save_params`` of the param pytree (blocks stacked into ``(L, ...)``
+leaves), and ``train_state.npz`` holds optax's state leaves in
+``jax.tree_util.tree_leaves`` order, ``opt_0`` the int32 step count, then
+every ``mu`` leaf, then every ``nu`` leaf (the param tree's sorted-key
+order), and ``epoch`` (int64). A mesh run writes both gathered, as the
+JAX package's does.
 
 Usage:
     model, history = fit(spec, dataset, epochs=3, checkpoint_dir="ckpts",
                          device="cuda")
+    model, history = fit(spec, dataset, epochs=3, checkpoint_dir="ckpts",
+                         mesh=train_mesh(model_parallel=2))
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from ..models.checkpoint import (
 from ..models.clip import CLIP, encode_image, encode_text
 from ..preprocess import device_preprocess_indexed
 from ..utils import get_logger
-from .contrastive import AdamState, make_optimizer, make_train_step
+from .contrastive import AdamState, ShardedAdamState, make_optimizer, make_train_step
+from .sharded import ShardedCLIP
 
 log = get_logger("train")
 
@@ -57,7 +62,10 @@ def _to_device(batch, device: torch.device, compute_dtype: torch.dtype):
 def retrieval_accuracy(model, spec: CLIPModelSpec, batches,
                        compute_dtype: torch.dtype = torch.float32) -> float:
     """Image->text top-1 retrieval accuracy within each batch (argmax:
-    the first index among ties), on the model's device."""
+    the first index among ties), on the model's device (a ``ShardedCLIP``
+    gathered onto its mesh's first device)."""
+    if isinstance(model, ShardedCLIP):
+        model = model.gather()
     device = next(model.parameters()).device
     correct = total = 0
     for batch in batches:
@@ -77,39 +85,51 @@ def _leaf_keys(model) -> list[str]:
     return tree_leaves(_unflatten({k: k for k in keys}))
 
 
-def _save_train_state(path: Path, opt_state: AdamState, epoch: int) -> None:
-    """optax's leaves: the count, the mu leaves, the nu leaves."""
+def _save_train_state(path: Path, opt_state: AdamState | ShardedAdamState,
+                      epoch: int) -> None:
+    """optax's leaves: the count, the mu leaves, the nu leaves (gathered
+    from a mesh)."""
     leaves = [np.asarray(opt_state.count, np.int32)]
     for moments in (opt_state.mu, opt_state.nu):
-        leaves += tree_leaves(tree_from_named(
-            {name: t.detach().cpu().numpy() for name, t in moments.items()}))
+        if isinstance(opt_state, ShardedAdamState):
+            tree = _unflatten({k: v.gather().numpy() for k, v in moments.items()})
+        else:
+            tree = tree_from_named({name: t.detach().cpu().numpy()
+                                    for name, t in moments.items()})
+        leaves += tree_leaves(tree)
     flat = {f"opt_{i}": leaf for i, leaf in enumerate(leaves)}
     flat["epoch"] = np.asarray(epoch, np.int64)
     np.savez(path, **flat)
 
 
-def _load_train_state(path: Path, model) -> tuple[AdamState | None, int]:
-    """The optimizer state saved by either package's _save_train_state,
-    on the model's device; (None, 0) on any mismatch (state from a
-    different optimizer or model shape)."""
-    params = dict(model.named_parameters())
-    keys = _leaf_keys(model)
+def _load_train_state(path: Path, model) -> tuple[AdamState | ShardedAdamState | None, int]:
+    """The optimizer state saved by either package's _save_train_state, on
+    the model's device, or sharded like a ``ShardedCLIP``'s params (the
+    template's placements: a moment is never held unsharded); (None, 0)
+    on any mismatch (state from a different optimizer or model shape)."""
+    sharded = isinstance(model, ShardedCLIP)
+    params = model.params if sharded else dict(model.named_parameters())
+    keys = tree_leaves(_unflatten({k: k for k in params})) if sharded else _leaf_keys(model)
     n = len(keys)
     try:
         with np.load(path, allow_pickle=False) as data:
             count = data["opt_0"]
-            moments = []
-            for first in (1, 1 + n):
-                tree = _unflatten({k: data[f"opt_{first + i}"] for i, k in enumerate(keys)})
-                moments.append(named_from_tree(tree))
+            moments = [{k: data[f"opt_{first + i}"] for i, k in enumerate(keys)}
+                       for first in (1, 1 + n)]
             epoch = int(data["epoch"])
     except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile):
         return None, 0
+    if not sharded:
+        moments = [named_from_tree(_unflatten(m)) for m in moments]
     if count.shape != () or any(
-        set(m) != set(params) or any(m[k].shape != params[k].shape for k in m)
+        set(m) != set(params) or any(m[k].shape != tuple(params[k].shape) for k in m)
         for m in moments
     ):
         return None, 0
+    if sharded:
+        mu, nu = ({k: params[k].sharding.place(np.asarray(m[k], np.float32)) for k in params}
+                  for m in moments)
+        return ShardedAdamState(int(count), mu, nu), epoch
     mu, nu = ({k: torch.from_numpy(np.array(m[k], np.float32)).to(params[k].device)
                for k in params} for m in moments)
     return AdamState(int(count), mu, nu), epoch
@@ -120,7 +140,7 @@ def fit(
     dataset,
     epochs: int = 1,
     learning_rate: float = 1e-5,
-    params: CLIP | None = None,
+    params: CLIP | dict | None = None,
     checkpoint_dir: str | Path | None = None,
     resume: bool = False,
     mesh=None,
@@ -132,32 +152,39 @@ def fit(
     """Train; returns (model, list of per-epoch mean losses).
 
     ``params`` is a :class:`CLIP` module, moved to ``device`` and trained
-    in place; None starts from ``checkpoint_dir``'s ``clip.npz`` when
-    ``resume`` finds one, else from a random init seeded by ``seed`` (a
-    torch generator: other numbers than the JAX package's init). A resume
+    in place, or the JAX package's param pytree (numpy leaves); None
+    starts from ``checkpoint_dir``'s ``clip.npz`` when ``resume`` finds
+    one, else from a random init seeded by ``seed`` (a torch generator:
+    other numbers than the JAX package's init). A resume
     restores the optimizer state too and numbers its epochs after the
     saved one; a state that does not match starts a fresh optimizer from
-    epoch 0. ``device`` as ``core.device.resolve_device`` resolves it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...): sharded training is the training half of ROADMAP "
-            "A13, not ported yet; the port trains on one device"
-        )
-    device = resolve_device(device)
+    epoch 0. ``device`` as ``core.device.resolve_device`` resolves it.
+
+    With a ``mesh`` (``train_mesh``), the params, or the resumed
+    ``clip.npz``, are placed on it by ``clip_param_specs`` (the returned
+    model is a ``ShardedCLIP``), the optimizer state is restored with the
+    params' placements, each batch is preprocessed on the mesh's first
+    device and split over the data axis, and both checkpoint files are
+    written gathered; ``device`` is then unused."""
+    device = mesh.device(0) if mesh is not None else resolve_device(device)
     ckpt = Path(checkpoint_dir) / "clip.npz" if checkpoint_dir else None
     state_ckpt = Path(checkpoint_dir) / "train_state.npz" if checkpoint_dir else None
     resumed = False
     if params is None:
         if resume and ckpt and ckpt.exists():
-            tree, loaded_spec = load_params(ckpt)
+            params, loaded_spec = load_params(ckpt)
             if loaded_spec != spec:
                 raise ValueError("checkpoint spec mismatch")
-            params = params_from_numpy(tree, spec, device)
             resumed = True
             log.info("resumed from %s", ckpt)
         else:
             params = CLIP(spec).init_random_(torch.Generator().manual_seed(seed))
-    model = params.to(device)
+    if mesh is not None:
+        model = ShardedCLIP.place(params, mesh, spec)
+    elif isinstance(params, CLIP):
+        model = params.to(device)
+    else:
+        model = params_from_numpy(params, spec, device)
 
     optimizer = make_optimizer(learning_rate=learning_rate)
     step = make_train_step(spec, optimizer, compute_dtype=compute_dtype)
@@ -186,6 +213,7 @@ def fit(
         history.append(mean_loss)
         log.info("epoch %d done: mean loss %.4f", epoch, mean_loss)
         if ckpt:
-            save_params(ckpt, params_to_numpy(model), spec)
+            tree = model.to_numpy() if mesh is not None else params_to_numpy(model)
+            save_params(ckpt, tree, spec)
             _save_train_state(state_ckpt, opt_state, epoch)
     return model, history

@@ -24,7 +24,7 @@ from evossearch_tpu_torch.core import CLIPModelSpec
 from evossearch_tpu_torch.models import load_model, params_from_numpy, params_to_numpy
 from evossearch_tpu_torch.models.checkpoint import load_params, tree_leaves
 from evossearch_tpu_torch.tokenizer import CLIPTokenizer
-from evossearch_tpu_torch.train import PairDataset, fit, retrieval_accuracy
+from evossearch_tpu_torch.train import PairDataset, fit, retrieval_accuracy, train_mesh
 
 TINY = CLIPModelSpec(
     name="tiny", image_size=32, patch_size=16, vision_width=64,
@@ -87,11 +87,13 @@ def test_fit_resume_from_checkpoint(pair_folder, tmp_path):
 
 
 def test_fit_sharded_mesh(pair_folder):
-    """The mesh half of training (the training half of A13) is not ported:
-    fit raises for a mesh."""
+    """fit on the (4, 2) mesh over [cpu] * 8, the stand-in for the JAX
+    test's 8 forced host devices: a finite loss, and a sharded model."""
     ds = PairDataset(pair_folder, CLIPTokenizer(), TINY, batch_size=8, seed=2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        fit(TINY, ds, epochs=1, learning_rate=1e-3, mesh=object(), device="cpu")
+    mesh = train_mesh(devices=["cpu"] * 8, model_parallel=2)
+    model, history = fit(TINY, ds, epochs=1, learning_rate=1e-3, mesh=mesh, log_every=100)
+    assert np.isfinite(history[0])
+    assert model.mesh is mesh and model.mesh.shape == {"data": 4, "model": 2}
 
 
 def test_dataset_skips_missing_and_corrupt(pair_folder):

@@ -107,7 +107,14 @@ then, before the last check, the slices that serve other settings:
   * ``kernel_check_d1024``: B1 and B2 bit for bit against their plain
     versions at d = 1024 (262,144 and 1,048,576 rows, Q and every query
     bucket), B3 at 1,000,003 and 262,144 rows, Q and every query bucket,
-    and the tensor cores' accumulation error.
+    and the tensor cores' accumulation error;
+  * ``bench``: the port's bench as users start it, ``python -m
+    evossearch_tpu_torch.bench --phases search,encode_l14`` in a
+    subprocess: the headline (exact top-48 of 48 queries over 1,000,000
+    unit f32 rows, the tree kernel's f32 path) held against the bench's
+    own float64 oracle, and ViT-L/14's image tower at batch 64 with its
+    card-against-CPU check; exit code, the stdout line, the checks and the
+    bench's launch counts.
 
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. In the closing
@@ -117,8 +124,8 @@ and ``stream_f32`` the kernels' f32 paths; ``launches`` and
 ``launches_rn50`` count each kernel's launches by corpus dtype
 (``ops.topk.DTYPE_LAUNCHES``) on the main path and on the resnet phase's
 path, ``launches_sharded`` on the sharded phase's, ``launches_train``
-on the train phase's and ``launches_train_mesh`` on the train_mesh
-phase's. The last line is
+on the train phase's, ``launches_train_mesh`` on the train_mesh
+phase's and ``launches_bench`` on the bench's phases. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -2701,6 +2708,52 @@ def resnet_phase(topk, search, work: Path) -> dict:
     return launches
 
 
+BENCH_PHASES = "search,encode_l14"  # the bench phases the smoke runs
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase(topk) -> dict:
+    """The port's bench as users start it, in a subprocess: ``python -m
+    evossearch_tpu_torch.bench --phases search,encode_l14`` (the headline,
+    1,000,000 unit f32 rows of d = 512, 48 queries, k = 48; ViT-L/14's
+    image tower at batch 64 and its card-against-CPU check). It must exit
+    0, print one stdout line with the headline metric and this card's
+    name, and log its oracle's and ViT-L/14's checks as passed. Returns
+    the bench's launches by kernel and corpus dtype, summed over its
+    phases (each phase counts its own from 0)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "evossearch_tpu_torch.bench", "--phases", BENCH_PHASES],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    err = proc.stderr
+    check(proc.returncode == 0, f"the bench exits 0 ({proc.returncode}; {err[-3000:]})")
+    out = [line for line in proc.stdout.splitlines() if line.strip()]
+    check(len(out) == 1, f"the bench prints one stdout line ({out})")
+    head = json.loads(out[0])
+    check(head.get("metric") == "exact_top48_per_query_ms_at_1M_vectors_batch48"
+          and head.get("unit") == "ms" and head.get("value", 0) > 0,
+          f"the bench's headline line ({head})")
+    check(head.get("device", {}).get("kind") == torch.cuda.get_device_name(0),
+          f"the bench names this card ({head.get('device')})")
+    for name in ("search_oracle", "encode_l14_card_vs_cpu", "encode_l14_finite"):
+        check(f"check {name} ok" in err, f"the bench's check {name} passed")
+    phases = [json.loads(line[len("phase "):]) for line in err.splitlines()
+              if line.startswith("phase {")]
+    check([p["name"] for p in phases] == BENCH_PHASES.split(",")
+          and all(p["ok"] for p in phases), f"the bench's phases ran in order ({phases})")
+    launches = {key: sum(p["launches"][key] for p in phases) for key in topk.DTYPE_LAUNCHES}
+    check(launches["tree_f32"] > 0, "the headline reached the tree kernel's f32 path")
+    emit({"phase": "bench", "seconds": wall, "command": f"python -m evossearch_tpu_torch.bench "
+          f"--phases {BENCH_PHASES}", "headline": head, "phases": phases,
+          "checks": [line for line in err.splitlines() if line.startswith("check ")],
+          "summary": [line[2:] for line in err.splitlines() if line.startswith("| ")]})
+    return launches
+
+
 def wide_kernel_checks(topk) -> dict:
     """The exact kernels at RN50's d = 1024, bit for bit against their
     plain versions on exact-dot inputs: B1 (tree) and B2 (block), bf16,
@@ -2888,6 +2941,7 @@ def main() -> int:
         sharded_launches = sharded_phase(topk, search, work)
         rn50_launches = resnet_phase(topk, search, work)
     wide_kernel_checks(topk)
+    bench_launches = bench_phase(topk)
     # last, so the 51 GB it allocates and frees precede no timing
     block_grid_check(topk)
 
@@ -2908,6 +2962,9 @@ def main() -> int:
             "launches_train_mesh": train_mesh_launches[key],
             # launches on the sharded phase's paths (parallel/ on one card)
             "launches_sharded": sharded_launches[key],
+            # launches of the bench's phases (python -m evossearch_tpu_torch.bench
+            # --phases search,encode_l14, a subprocess)
+            "launches_bench": bench_launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

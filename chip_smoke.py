@@ -114,7 +114,18 @@ then, before the last check, the slices that serve other settings:
     unit f32 rows, the tree kernel's f32 path) held against the bench's
     own float64 oracle, and ViT-L/14's image tower at batch 64 with its
     card-against-CPU check; exit code, the stdout line, the checks and the
-    bench's launch counts.
+    bench's launch counts;
+  * ``scripts``: the JAX package's four profilers as the port's scripts,
+    each as users start it (``python -m
+    evossearch_tpu_torch.scripts.<name>``) in a subprocess:
+    ``exp_merge_variants`` (B1's merge in cumulative stages, with
+    production and two alternates, at 1,000,000 bf16 and f32 rows and
+    10,000,000 bf16 rows), ``exp_merge_profile`` (torch.profiler over the
+    packed tree search: tracks, top device kernels, the card's idle
+    share; it must name B1's kernel), ``exp_rn50_profile`` (RN50's
+    segments and batch sweep) and ``exp_index_producer`` (host only: the
+    build with a stub encoder against decode-only); exit codes, their
+    checks, their key lines and their launch counts.
 
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. In the closing
@@ -125,7 +136,8 @@ and ``stream_f32`` the kernels' f32 paths; ``launches`` and
 (``ops.topk.DTYPE_LAUNCHES``) on the main path and on the resnet phase's
 path, ``launches_sharded`` on the sharded phase's, ``launches_train``
 on the train phase's, ``launches_train_mesh`` on the train_mesh
-phase's and ``launches_bench`` on the bench's phases. The last line is
+phase's, ``launches_bench`` on the bench's phases and
+``launches_scripts`` those the experiment scripts report. The last line is
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero with no last line. Without a GPU it exits 1 at once.
 """
@@ -158,6 +170,7 @@ N_BLOCK_TAIL = 300_007  # a partial last 2048-row tile of the block kernel
 N_BLOCK_GRID = 67_110_913
 D_BLOCK_GRID = 128  # the narrowest width, so both dtypes fit on the card
 N_TREE = 1 << 20    # the tree kernel at k=12 and k=48
+TREE_BF16_TILES = (8192,)  # bf16 tile rows checked besides production's 16384
 N_SQ8 = 1 << 21     # the over-budget folder, and the SQ8 kernel checks
 N_SQ8_TAIL = 1_000_003  # a partial last SQ8 tile, n % 4 != 0 (radd unaligned)
 N_STREAM = 1 << 20  # the stream kernel checks
@@ -323,6 +336,8 @@ def kernel_checks(topk, search) -> dict:
                       "version bit for bit")
                 del got, want
             extra = block_bit_equality(topk, emb, dtype) if name == "block" else {}
+            if name == "tree" and dtype == torch.bfloat16 and k == 48:
+                extra.update(tree_tile_bit_equality(topk, emb, q_all, bit_equal_q))
             o_s, o_i = oracle_topk(oracle_scores(emb, q), k)
             ok, s, i = fused(emb, q, k)
             okc = ok.cpu()
@@ -400,6 +415,24 @@ def block_bit_equality(topk, emb: torch.Tensor, dtype) -> dict:
     del tail, got, want
     return {"bit_equal_plain_at_levels": [topk.default_levels(N_BLOCK), 3],
             "bit_equal_plain_at_n": [N_BLOCK, N_BLOCK_TAIL]}
+
+
+def tree_tile_bit_equality(topk, emb: torch.Tensor, q_all: torch.Tensor,
+                           bit_equal_q) -> dict:
+    """The tree kernel over the bf16 exact-dot rows at the tile rows that
+    exp_merge_variants' tile sweep (a3) launches besides production's,
+    bit for bit against its plain version at Q and every query bucket."""
+    for tile in TREE_BF16_TILES:
+        for nq in bit_equal_q:
+            got = topk.tree_candidates(emb, q_all[:nq], tile)
+            torch.cuda.synchronize()
+            want = topk.tree_candidates_plain(emb, q_all[:nq], tile)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"tree bf16 candidates at tile {tile} Q={nq} equal the plain "
+                  "version bit for bit")
+            del got, want
+    return {"bit_equal_plain_at_tiles": [topk._tree_tile_rows(torch.bfloat16),
+                                         *TREE_BF16_TILES]}
 
 
 def block_grid_check(topk) -> list[dict]:
@@ -2754,6 +2787,90 @@ def bench_phase(topk) -> dict:
     return launches
 
 
+SCRIPTS = ("exp_merge_variants", "exp_merge_profile", "exp_rn50_profile",
+           "exp_index_producer")  # the JAX package's four profilers, ported
+HOST_SCRIPTS = ("exp_index_producer",)  # host only: it names the host, not the card
+SCRIPTS_TIMEOUT_S = 300
+
+
+def script_lines(name: str, rows: list[dict]) -> dict:
+    """The key lines of one script's JSON rows: the stage table, the top
+    device kernels and the idle share, the RN50 segment table, the
+    producer against decode-only."""
+    if name == "exp_merge_variants":
+        return {f"{r['n']} {r['dtype']}": {
+            key: r[key] for key in ("tile", "stages_ms", "step_ms", "production_ms",
+                                    "production_host_ms", "production_cert_rate",
+                                    "alternates", "launches")} for r in rows}
+    if name == "exp_merge_profile":
+        r = rows[0]
+        return {key: r[key] for key in ("n", "dtype", "reps", "idle_share", "device_us",
+                                        "window_us", "tracks", "launches", "trace")} | {
+            "top_device_ops_us": dict(list(r["ops"].items())[:12])}
+    if name == "exp_rn50_profile":
+        return {r["measure"]: {k: v for k, v in r.items() if k not in ("ok", "device")}
+                for r in rows if r["measure"] != "rn50_batch"} | {
+            "batches": {r["batch"]: [r["ms"], r["images_per_s"], r["mfu"]]
+                        for r in rows if r["measure"] == "rn50_batch"}}
+    return {r["measure"]: {k: r[k] for k in ("best_s", "images_per_s", "runs_s", "routes")}
+            for r in rows} | {"host": rows[0]["host"],
+                               "share_of_decode_only_rate": rows[1]["share_of_decode_only_rate"],
+                               "native_route": rows[1]["native_route"]}
+
+
+def scripts_phase(topk, smi: str) -> dict:
+    """The port's four experiment scripts as users start them, each in a
+    subprocess: ``python -m evossearch_tpu_torch.scripts.<name>`` for
+    exp_merge_variants (B1's merge by stage at 1M bf16, 1M f32 and 10M
+    bf16 rows), exp_merge_profile (torch.profiler over the packed tree
+    search), exp_rn50_profile (RN50's segments and batch sweep) and
+    exp_index_producer (host only: the stub build against decode-only).
+    Each must exit 0 with every JSON row ``ok``; the card scripts must
+    print this card's name and power limit (``smi``) and name it in each
+    row, the producer must label its numbers as the host's; the profile
+    must name B1's kernel among its device ops. Emits each script's key
+    lines; returns the launches by kernel and corpus dtype that the
+    scripts' rows report, summed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(topk.DTYPE_LAUNCHES, 0)
+    for name in SCRIPTS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"evossearch_tpu_torch.scripts.{name}"],
+                              capture_output=True, text=True, timeout=SCRIPTS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"{name} exits 0 ({proc.returncode}; {proc.stderr[-3000:]}{proc.stdout[-2000:]})")
+        lines = proc.stdout.splitlines()
+        rows = [json.loads(line) for line in lines if line.startswith("{")]
+        check(rows and all(r["ok"] for r in rows), f"{name}'s checks passed ({rows})")
+        if name in HOST_SCRIPTS:
+            check(lines[0].startswith("host: ") and all(r["clock"] == "host" for r in rows),
+                  f"{name} labels its numbers as the host's ({lines[0]})")
+        else:
+            check(lines[0] == smi and all(r["device"] == torch.cuda.get_device_name(0)
+                                          for r in rows),
+                  f"{name} names this card ({lines[0]})")
+        if name == "exp_merge_profile":
+            from evossearch_tpu_torch.scripts.exp_merge_profile import names_tree_kernel
+
+            check(rows[0]["ops_from"] == "device" and names_tree_kernel(rows[0]["ops"]),
+                  f"the merge profile names B1's kernel among its device ops ({rows[0]['ops']})")
+            Path(rows[0]["trace"]).unlink(missing_ok=True)
+            Path(rows[0]["trace"]).parent.rmdir()
+        for r in rows:
+            for key, v in r.get("launches", {}).items():
+                launches[key] += v
+        extra = {"profile": [line for line in lines[1:] if not line.startswith("{")]
+                 } if name in HOST_SCRIPTS else {}
+        emit({"phase": "scripts", "script": name, "seconds": wall,
+              "command": f"python -m evossearch_tpu_torch.scripts.{name}",
+              **script_lines(name, rows), **extra})
+    check(launches["tree"] > 0 and launches["tree_f32"] > 0,
+          f"the scripts reached B1's bf16 and f32 paths ({launches})")
+    return launches
+
+
 def wide_kernel_checks(topk) -> dict:
     """The exact kernels at RN50's d = 1024, bit for bit against their
     plain versions on exact-dot inputs: B1 (tree) and B2 (block), bf16,
@@ -2942,6 +3059,7 @@ def main() -> int:
         rn50_launches = resnet_phase(topk, search, work)
     wide_kernel_checks(topk)
     bench_launches = bench_phase(topk)
+    scripts_launches = scripts_phase(topk, smi)
     # last, so the 51 GB it allocates and frees precede no timing
     block_grid_check(topk)
 
@@ -2965,6 +3083,9 @@ def main() -> int:
             # launches of the bench's phases (python -m evossearch_tpu_torch.bench
             # --phases search,encode_l14, a subprocess)
             "launches_bench": bench_launches[key],
+            # launches the experiment scripts report (python -m
+            # evossearch_tpu_torch.scripts.exp_*, subprocesses)
+            "launches_scripts": scripts_launches[key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

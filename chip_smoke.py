@@ -125,7 +125,14 @@ then, before the last check, the slices that serve other settings:
     share; it must name B1's kernel), ``exp_rn50_profile`` (RN50's
     segments and batch sweep) and ``exp_index_producer`` (host only: the
     build with a stub encoder against decode-only); exit codes, their
-    checks, their key lines and their launch counts.
+    checks, their key lines and their launch counts;
+  * ``reference_suites``: the JAX package's engine suites as the port
+    holds them (``tests/test_torch_ref_*.py``: the HTTP contract, the
+    device budget, the batchers, the search kernels' selection, the
+    round-4 and round-5 fixes), their ``gpu`` cases in a subprocess,
+    ``python -m pytest --noconftest -q -p no:cacheprovider -m gpu``:
+    every case must pass and none skip, each file must run at least one,
+    and the engine's case through the block kernel must be among them.
 
 Every line on stdout but the last is one result: a JSON object, or the
 card's name and power limit as nvidia-smi reports them. In the closing
@@ -2871,6 +2878,74 @@ def scripts_phase(topk, smi: str) -> dict:
     return launches
 
 
+# the port's copies of the JAX package's engine suites whose cases run on
+# the card too (a ``device`` fixture with a ``gpu``-marked "cuda" case)
+REFERENCE_SUITES = (
+    "tests/test_torch_ref_api_contract.py",
+    "tests/test_torch_ref_hbm_budget.py",
+    "tests/test_torch_ref_serving.py",
+    "tests/test_torch_ref_engine_kernels.py",
+    "tests/test_torch_ref_round4_fixes.py",
+    "tests/test_torch_ref_review5_fixes.py",
+)
+REFERENCE_SUITES_LIMIT_S = 180
+# the engine's case that must reach the block kernel on the card
+REFERENCE_BLOCK_CASE = "test_pallas_kernel_reaches_block[cuda]"
+
+
+def reference_suites_phase() -> dict:
+    """The ``gpu`` cases of REFERENCE_SUITES, as the repo's docs run them
+    on a machine without JAX: ``python -m pytest --noconftest -q -p
+    no:cacheprovider -m gpu <files>`` in a subprocess, with no
+    EVOSSEARCH_* variable of this process. It must exit 0 within
+    REFERENCE_SUITES_LIMIT_S with no case skipped, failed or in error,
+    every collected case passed, each file passing at least one, and
+    REFERENCE_BLOCK_CASE (the engine's search through the block kernel,
+    counted in ``ops.topk.DTYPE_LAUNCHES``) among the passes. Emits the
+    files, the passed count per file and the seconds."""
+    import xml.etree.ElementTree as ET
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EVOSSEARCH_")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_suites_") as tmp:
+        xml = Path(tmp) / "junit.xml"
+        argv = [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+                "no:cacheprovider", "-m", "gpu", f"--junitxml={xml}", *REFERENCE_SUITES]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"the reference suites pass on the card ({proc.returncode}; "
+              f"{proc.stdout[-4000:]}{proc.stderr[-2000:]})")
+        cases = ET.parse(xml).getroot().iter("testcase")
+        outcomes = {}
+        for case in cases:
+            kind = next((child.tag for child in case
+                         if child.tag in ("skipped", "failure", "error")), "passed")
+            outcomes[(case.get("classname"), case.get("name"))] = kind
+    not_passed = {f"{c}::{n}": kind for (c, n), kind in outcomes.items() if kind != "passed"}
+    check(not not_passed, f"every gpu case of the reference suites passed ({not_passed})")
+    per_file = {path: sum(1 for (c, _), kind in outcomes.items()
+                          if kind == "passed" and c.split(".")[-1] == Path(path).stem)
+                for path in REFERENCE_SUITES}
+    check(all(n > 0 for n in per_file.values()),
+          f"each reference suite ran gpu cases on the card ({per_file})")
+    check(sum(per_file.values()) == len(outcomes),
+          f"every case is counted under its file ({per_file}, {len(outcomes)})")
+    check(any(n == REFERENCE_BLOCK_CASE and kind == "passed"
+              for (_, n), kind in outcomes.items()),
+          f"the engine's case through the block kernel passed ({REFERENCE_BLOCK_CASE})")
+    check(wall < REFERENCE_SUITES_LIMIT_S,
+          f"the reference suites ran within {REFERENCE_SUITES_LIMIT_S} s ({wall:.1f} s)")
+    row = {"phase": "reference_suites", "seconds": wall,
+           "command": " ".join(["python -m pytest", *argv[3:7], "-m gpu", *REFERENCE_SUITES]),
+           "files": list(REFERENCE_SUITES), "passed": sum(per_file.values()),
+           "passed_per_file": per_file, "summary": proc.stdout.strip().splitlines()[-1]}
+    emit(row)
+    return row
+
+
 def wide_kernel_checks(topk) -> dict:
     """The exact kernels at RN50's d = 1024, bit for bit against their
     plain versions on exact-dot inputs: B1 (tree) and B2 (block), bf16,
@@ -3060,6 +3135,7 @@ def main() -> int:
     wide_kernel_checks(topk)
     bench_launches = bench_phase(topk)
     scripts_launches = scripts_phase(topk, smi)
+    reference_suites_phase()
     # last, so the 51 GB it allocates and frees precede no timing
     block_grid_check(topk)
 

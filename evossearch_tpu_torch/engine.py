@@ -295,7 +295,11 @@ class SearchEngine:
         order. Two buckets in flight: bucket i+1's upload and encode are
         queued before bucket i is copied back. ``fetch=False`` returns a
         :class:`PendingEmbeddings` whose ``resolve()`` does the
-        device->host copy later."""
+        device->host copy later. Timed as ``encode_inputs`` (the padding
+        to the bucket and the resample matrices' device cache), then
+        ``prep_encode`` (off the timeline), split into ``encode_upload``
+        (the host-to-device copies) and ``encode_dispatch`` (the towers'
+        launches)."""
         n = canvases[0].shape[0]
         if n == 0:
             empty = np.zeros((0, self.spec.embed_dim), np.float32)
@@ -303,28 +307,33 @@ class SearchEngine:
         devices = self._encode_devices or [self.device]
         b = _bucket(n, max(self._index_batch, 1))
         b = -(-b // len(devices)) * len(devices)  # equal rows per device
-        if n < b or n % b:
-            pad = -(-n // b) * b - n
-            canvases = tuple(
-                np.concatenate([c, np.zeros((pad,) + c.shape[1:], c.dtype)])
-                for c in canvases
-            )
-            size_idx = np.concatenate([size_idx, np.zeros(pad, size_idx.dtype)])
+        with self.timers.stage("encode_inputs"):
+            if n < b or n % b:
+                pad = -(-n // b) * b - n
+                canvases = tuple(
+                    np.concatenate([c, np.zeros((pad,) + c.shape[1:], c.dtype)])
+                    for c in canvases
+                )
+                size_idx = np.concatenate([size_idx, np.zeros(pad, size_idx.dtype)])
+            mats_d = {dev: self._device_mats(mats, dev) for dev in dict.fromkeys(devices)}
         per = b // len(devices)
-        mats_d = {dev: self._device_mats(mats, dev) for dev in dict.fromkeys(devices)}
         out = []
         in_flight: list = []
-        with self.timers.stage("prep_encode"):
+        with self.timers.stage("prep_encode", enclosing=True):
             for start in range(0, canvases[0].shape[0], b):
                 self.counters.add("upload_canvas_bytes", sum(
                     int(c[start : start + b].nbytes) for c in canvases))
                 parts = []
                 for j, dev in enumerate(devices):
                     sl = slice(start + j * per, start + (j + 1) * per)
-                    cs = tuple(torch.from_numpy(c[sl]).to(dev) for c in canvases)
-                    idx = torch.from_numpy(size_idx[sl]).to(dev)
-                    parts.append(encode(self._replica(dev), cs, mats_d[dev], idx)
-                                 .to(self.device))
+                    # pageable copies: each first waits for the work the
+                    # stream already holds
+                    with self.timers.stage("encode_upload"):
+                        cs = tuple(torch.from_numpy(c[sl]).to(dev) for c in canvases)
+                        idx = torch.from_numpy(size_idx[sl]).to(dev)
+                    with self.timers.stage("encode_dispatch"):
+                        parts.append(encode(self._replica(dev), cs, mats_d[dev], idx)
+                                     .to(self.device))
                 in_flight.append(parts[0] if len(parts) == 1 else torch.cat(parts))
                 if fetch and len(in_flight) >= 2:
                     out.append(in_flight.pop(0).cpu().numpy())
@@ -459,7 +468,7 @@ class SearchEngine:
         """Batched (re)index of a folder; returns row count (0 = no images)."""
         if incremental is None:
             incremental = self.cfg.INCREMENTAL_INDEX
-        with self._folder_lock(folder), self.timers.stage("index_folder"):
+        with self._folder_lock(folder), self.timers.stage("index_folder", enclosing=True):
             count = build_index(
                 folder,
                 pipeline_encoder=self,
@@ -634,6 +643,7 @@ class SearchEngine:
 
         return self._lazy_batcher("_fused_batcher_inst", lambda: TextSearchBatcher(
             self._execute_text_search_batch, window_ms=self.cfg.MICROBATCH_MS,
+            timers=self.timers,
         ))
 
     # -- device-memory budget for cached corpora --
@@ -1294,7 +1304,9 @@ class SearchEngine:
         tokens = self.tokenizer.tokenize(
             [query], self.spec.context_length, truncate=self.tokenizer.fallback,
         )
-        with self.timers.stage("search"):
+        # the batcher splits the stage into search_batch_wait and
+        # search_dispatch, which stand on the timeline in its place
+        with self.timers.stage("search", enclosing=True):
             try:
                 scores, idx, emb_row = batcher.submit(
                     _canon(folder), np.asarray(tokens[0], np.int32),

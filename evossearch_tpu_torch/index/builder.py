@@ -11,8 +11,12 @@ progress is durable at shard granularity so a crashed run resumes.
 from __future__ import annotations
 
 import os
+import queue
+import threading
+import time
+from contextlib import nullcontext
 from pathlib import Path
-from typing import Callable, Iterable
+from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
 
@@ -73,40 +77,50 @@ def build_index(
     ``planar`` its planar 4:2:0 output (with a ``pipeline_encoder`` that
     has ``encode_prepared_planar``). How each image was decoded is counted
     (``preprocess.io``), logged, and added to the encoder's ``counters``
-    when it has them.
+    when it has them. With a ``pipeline_encoder`` that has ``timers``
+    (a ``StageTimer``), the pass is timed in stages that tile it in this
+    thread: ``index_open`` (scan, writer create or resume, the producer's
+    start), ``_consume``'s stages, then ``index_finalize`` (the
+    producer's join, the decode counts, ``writer.finalize``).
     """
     from collections import Counter
 
+    entered = time.perf_counter()
+    timers = getattr(pipeline_encoder, "timers", None)
     decode_counts: Counter = Counter()
-    paths = scan_folder(folder, extensions)
-    done: set[str] = set()
-    writer = None
-    if resume:
-        writer = IndexWriter.resume(
-            folder, model_name, dim, index_folder_name=index_folder_name
-        )
-        if writer is not None:
-            done = load_progress(folder, index_folder_name)
-            log.info("resuming indexing of %s: %d rows already embedded",
-                     folder, len(done))
-    if writer is None:
-        kwargs = {}
-        if rows_per_shard is not None:
-            kwargs["rows_per_shard"] = rows_per_shard
-        writer = IndexWriter.create(
-            folder, model=model_name, dim=dim, dtype_name=dtype_name,
-            index_folder_name=index_folder_name, **kwargs,
-        )
-        if incremental:
-            done |= _reuse_unchanged_rows(
-                folder, paths, writer, model_name, dim, index_folder_name
+    feed = None
+    with _stage(timers, "index_open"):
+        paths = scan_folder(folder, extensions)
+        done: set[str] = set()
+        writer = None
+        if resume:
+            writer = IndexWriter.resume(
+                folder, model_name, dim, index_folder_name=index_folder_name
+            )
+            if writer is not None:
+                done = load_progress(folder, index_folder_name)
+                log.info("resuming indexing of %s: %d rows already embedded",
+                         folder, len(done))
+        if writer is None:
+            kwargs = {}
+            if rows_per_shard is not None:
+                kwargs["rows_per_shard"] = rows_per_shard
+            writer = IndexWriter.create(
+                folder, model=model_name, dim=dim, dtype_name=dtype_name,
+                index_folder_name=index_folder_name, **kwargs,
+            )
+            if incremental:
+                done |= _reuse_unchanged_rows(
+                    folder, paths, writer, model_name, dim, index_folder_name
+                )
+        if pipeline_encoder is not None:
+            feed = _start_producer(
+                paths, done, pipeline_encoder, batch_size, fast_decode,
+                decode_short_side, planar, decode_counts,
             )
 
-    if pipeline_encoder is not None:
-        _pipelined_build(
-            paths, done, writer, pipeline_encoder, batch_size,
-            fast_decode, decode_short_side, planar, decode_counts,
-        )
+    if feed is not None:
+        _consume(feed, writer, pipeline_encoder, entered)
     else:
         pending_imgs: list = []
         pending_paths: list[str] = []
@@ -145,17 +159,25 @@ def build_index(
                 flush()
         flush()
 
-    counters = getattr(pipeline_encoder, "counters", None)
-    if counters is not None:
-        for route, count in decode_counts.items():
-            counters.add(route, count)
-    if writer.count == 0:
-        writer.abandon()  # no empty staging-dir litter (review finding)
-        return 0
-    writer.finalize()
-    log.info("indexed %d images in %s (decode: %s)", writer.count, folder,
-             dict(sorted(decode_counts.items())))
+    with _stage(timers, "index_finalize"):
+        if feed is not None:
+            feed.thread.join()
+        counters = getattr(pipeline_encoder, "counters", None)
+        if counters is not None:
+            for route, count in decode_counts.items():
+                counters.add(route, count)
+        if writer.count == 0:
+            writer.abandon()  # leave no empty staging dir behind
+            return 0
+        writer.finalize()
+        log.info("indexed %d images in %s (decode: %s)", writer.count, folder,
+                 dict(sorted(decode_counts.items())))
     return writer.count
+
+
+def _stage(timers, name: str):
+    """``timers.stage(name)``, or nothing without timers."""
+    return timers.stage(name) if timers is not None else nullcontext()
 
 
 def _reuse_unchanged_rows(
@@ -222,7 +244,9 @@ def _pipelined_build(
     paths, done, writer, encoder, batch_size, fast_decode, decode_short_side,
     planar, decode_counts,
 ) -> None:
-    """Overlapped host/device indexing pipeline.
+    """Overlapped host/device indexing pipeline: ``_start_producer`` then
+    ``_consume`` in this thread (``build_index`` runs the two apart, so
+    that its ``index_open`` stage covers the producer's start).
 
     A producer thread decodes + host-prepares batches (the native batch
     decoder and Pillow release the GIL) while the device runs the fused
@@ -236,10 +260,30 @@ def _pipelined_build(
     tagged. ``decode_counts`` (a Counter) receives each image's decode
     route from the producer thread.
     """
-    import queue
-    import threading
-    from contextlib import nullcontext
+    entered = time.perf_counter()
+    feed = _start_producer(paths, done, encoder, batch_size, fast_decode,
+                           decode_short_side, planar, decode_counts)
+    _consume(feed, writer, encoder, entered)
+    feed.thread.join()
 
+
+class _Feed(NamedTuple):
+    """The producer side of a pipelined build: its bounded queue of
+    prepared batches (then None, or the exception that stopped it), its
+    thread, and the flag that tells it the consumer gave up."""
+
+    out: "queue.Queue"
+    thread: threading.Thread
+    cancelled: threading.Event
+
+
+def _start_producer(
+    paths, done, encoder, batch_size, fast_decode, decode_short_side, planar,
+    decode_counts,
+) -> _Feed:
+    """Start the thread that decodes and host-prepares the batches of
+    ``paths`` not in ``done``, timed in its stages ``index_decode`` and
+    ``index_prepare``."""
     from ..preprocess import (
         DEFAULT_MAX_SIDE,
         planar_to_rgb_host,
@@ -266,13 +310,10 @@ def _pipelined_build(
                 continue
         return False
 
+    # Stage timers run in the producer thread concurrently with the
+    # device consumer, so stage sums can exceed wall time — they measure
+    # per-stage cost, not the (overlapped) critical path.
     timers = getattr(encoder, "timers", None)
-
-    def timed(stage: str):
-        # Stage timers run in the producer thread concurrently with the
-        # device consumer, so stage sums can exceed wall time — they
-        # measure per-stage cost, not the (overlapped) critical path.
-        return timers.stage(stage) if timers is not None else nullcontext()
 
     def producer():
         # one accumulator per batch kind: entries, paths, meta, size-set
@@ -282,7 +323,7 @@ def _pipelined_build(
             batch, bpaths, bmeta, _ = accs[kind]
             if not batch:
                 return True
-            with timed("index_prepare"):
+            with _stage(timers, "index_prepare"):
                 if kind == "planar":
                     prepared = prepare_batch_planar(batch, target=target)
                 else:
@@ -298,7 +339,7 @@ def _pipelined_build(
                 if cancelled.is_set():
                     return
                 chunk = todo[start : start + batch_size]
-                with timed("index_decode"):
+                with _stage(timers, "index_decode"):
                     entries = load(
                         chunk,
                         min_short_side=decode_short_side if fast_decode else 0,
@@ -351,18 +392,42 @@ def _pipelined_build(
         except BaseException as e:  # surface producer crashes to the consumer
             safe_put(e)
 
+    thread = threading.Thread(target=producer, name="index-producer", daemon=True)
+    thread.start()
+    return _Feed(out, thread, cancelled)
+
+
+def _consume(feed: _Feed, writer, encoder, entered: float) -> None:
+    """Encode the producer's batches in this thread and append them to
+    ``writer``, up to the last batch's append.
+
+    Its stages tile this thread's share of the pass, between
+    ``build_index``'s ``index_open`` and ``index_finalize``:
+    ``index_first_wait`` and ``index_feed_wait`` (the first and every
+    later wait on the queue), the encoder's ``encode_inputs``,
+    ``encode_upload``, ``encode_dispatch`` and ``prep_encode_fetch``, and
+    ``index_write`` (the appends). ``index_fill`` counts one interval from
+    ``entered`` to the end of the first batch's encode call: the card has
+    nothing of this pass to run until that call's first launch, and runs
+    the batch while the rest of its launches are made.
+    """
+    timers = getattr(encoder, "timers", None)
     # Deferred fetch: dispatch batch N+1's encode BEFORE copying batch N's
     # embeddings to the host, so the copy waits on work that has already
     # run while batch N+1 was decoded. One batch deep: append order (= row
     # order) is preserved.
     deferred = getattr(encoder, "supports_deferred_fetch", False)
 
-    thread = threading.Thread(target=producer, name="index-producer", daemon=True)
-    thread.start()
+    def write(emb, bpaths, bmeta) -> None:
+        with _stage(timers, "index_write"):
+            writer.append(emb, bpaths, bmeta)
+
     pending = None  # (PendingEmbeddings, paths, meta)
+    wait = "index_first_wait"
     try:
         while True:
-            item = out.get()
+            with _stage(timers, wait):
+                item = feed.out.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
@@ -372,25 +437,29 @@ def _pipelined_build(
                       else encoder.encode_prepared)
             if deferred:
                 pend = encode(*prepared, fetch=False)
-                if pending is not None:
-                    writer.append(pending[0].resolve(), pending[1], pending[2])
-                pending = (pend, bpaths, bmeta)
             else:
-                emb = encode(*prepared)
-                writer.append(np.asarray(emb, np.float32), bpaths, bmeta)
+                emb = np.asarray(encode(*prepared), np.float32)
+            if wait == "index_first_wait" and timers is not None:
+                timers.add("index_fill", time.perf_counter() - entered)
+            wait = "index_feed_wait"
+            if not deferred:
+                write(emb, bpaths, bmeta)
+                continue
+            if pending is not None:
+                write(pending[0].resolve(), pending[1], pending[2])
+            pending = (pend, bpaths, bmeta)
         if pending is not None:
-            writer.append(pending[0].resolve(), pending[1], pending[2])
+            write(pending[0].resolve(), pending[1], pending[2])
             pending = None
-        thread.join()
     except BaseException:
         # Consumer failure (ENOSPC, CUDA error, ...): signal the producer
         # and drain the bounded queue so its blocked put() can complete —
         # otherwise the thread (plus up to 3 decoded canvas batches)
         # leaks for the process lifetime on every failed /index.
-        cancelled.set()
-        while thread.is_alive():
+        feed.cancelled.set()
+        while feed.thread.is_alive():
             try:
-                out.get(timeout=0.1)
+                feed.out.get(timeout=0.1)
             except queue.Empty:
                 pass
         raise

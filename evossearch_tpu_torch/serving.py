@@ -58,6 +58,9 @@ class _Pending:
     query: object  # np.ndarray or device array (kept as-is — no host fetch)
     k: int
     future: Future = field(default_factory=Future)
+    # set when a worker takes the item from the queue (or fails it), where
+    # the submitter times its wait in two stages (TextSearchBatcher)
+    taken: threading.Event | None = None
 
 
 class MicroBatcher:
@@ -119,6 +122,8 @@ class MicroBatcher:
         for p in pending:
             if not p.future.done():
                 p.future.set_exception(RuntimeError(reason))
+            if p.taken is not None:
+                p.taken.set()
 
     def submit(self, folder: str, query, k: int):
         """Blocking search; returns (scores (k',), indices (k',)).
@@ -126,12 +131,15 @@ class MicroBatcher:
         ``query`` may be a numpy array or a device array — device arrays
         are passed through without a host fetch."""
         item = _Pending(folder=folder, query=query, k=k)
+        self._enqueue(item)
+        return item.future.result()
+
+    def _enqueue(self, item: _Pending) -> None:
         with self._lock:
             if self._stop:  # fail fast, never hang on a dead worker
                 raise RuntimeError(f"{self._name} closed")
             self._queue.append(item)
         self._wake.set()
-        return item.future.result()
 
     # -- worker --
 
@@ -200,6 +208,8 @@ class MicroBatcher:
                     ]
                     for p in batch:
                         self._queue.remove(p)
+                        if p.taken is not None:
+                            p.taken.set()
                 t0 = time.monotonic()
                 self._run(folder, batch)
                 last_round_end = time.monotonic()
@@ -335,7 +345,25 @@ class TextSearchBatcher(MicroBatcher):
     (scores (B, k), indices (B, k), embeddings (B, d) float32). submit()
     returns (scores (k',), indices (k',), embedding (1, d)); the
     embedding row feeds the engine's text cache so repeat queries skip
-    the tower entirely."""
+    the tower entirely.
+
+    ``timers`` (the engine's ``StageTimer``) times the submitter's wait
+    in two stages of its thread: ``search_batch_wait`` while the query
+    is queued, ``search_dispatch`` from when the worker takes it (text
+    tower, top-k, the copy back) to its result."""
+
+    def __init__(self, execute_batch, window_ms: float = 2.0,
+                 max_batch: int = 64, *, timers):
+        super().__init__(execute_batch, window_ms=window_ms, max_batch=max_batch)
+        self._timers = timers
+
+    def submit(self, folder: str, query, k: int):
+        item = _Pending(folder=folder, query=query, k=k, taken=threading.Event())
+        self._enqueue(item)
+        with self._timers.stage("search_batch_wait"):
+            item.taken.wait()
+        with self._timers.stage("search_dispatch"):
+            return item.future.result()
 
     def _run(self, folder: str, batch: list[_Pending]) -> None:
         try:

@@ -13,6 +13,8 @@ import time
 from collections import defaultdict, deque
 from contextlib import contextmanager
 
+from . import profiling
+
 _FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
 _setup_lock = __import__("threading").Lock()
 
@@ -41,6 +43,15 @@ class StageTimer:
     (query p50/p99) are readable from ``/stats`` — a sliding window rather
     than a classic uniform reservoir, because serving percentiles should
     reflect current behavior, not the cold-start compile spikes forever.
+
+    A stage reaches the ``torch.profiler`` timeline exactly while a
+    profiler is recording in the process (``profiling.recording()``): it
+    is then also a ``record_function`` span, on the profiler's clock
+    beside the kernels, in the thread that runs it. A stage that encloses
+    a whole request or other stages passes ``enclosing=True`` and stays
+    off the timeline, so that a gap on the timeline is named by the
+    innermost work under it. With no profiler recording a stage costs two clock reads and a
+    locked add.
     """
 
     WINDOW = 512  # samples kept per stage; p99 resolves above ~100 samples
@@ -54,26 +65,24 @@ class StageTimer:
         )
 
     @contextmanager
-    def stage(self, name: str):
-        # While EVOSSEARCH_PROFILE_DIR is set, every timed stage doubles
-        # as a torch.profiler record_function span so decode/prepare/encode/search
-        # regions line up on the captured timeline; zero overhead when
-        # profiling is off (one env lookup).
-        from . import profiling
-
+    def stage(self, name: str, enclosing: bool = False):
         t0 = time.perf_counter()
         try:
-            if profiling.enabled():
+            if enclosing or not profiling.recording():
+                yield
+            else:
                 with profiling.annotate(name):
                     yield
-            else:
-                yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
-                self._samples[name].append(dt)
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Count one interval of ``seconds`` under stage ``name``: for an
+        interval that no ``with`` block spans; never on the timeline."""
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+            self._samples[name].append(seconds)
 
     def snapshot(self) -> dict[str, dict[str, float]]:
         with self._lock:

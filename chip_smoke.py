@@ -2,8 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the top-k kernels from evossearch_tpu_torch/ops/csrc with nvcc
-(one nvcc per source, in parallel) and, beside them, the package's host
+Builds the top-k kernels and the towers' fused kernels from
+evossearch_tpu_torch/ops/csrc with nvcc (one nvcc per source, in
+parallel; phase ``tower_fused`` then holds the four fused kernels against
+their plain versions at ViT-L/14's batch-512 shapes and at the ViT-B/32
+app's image and text shapes, times them, and the L/14 towers fused
+against plain) and, beside them, the package's host
 extension with g++ (phase ``native``: the threaded host scanner, and the
 libjpeg decoders, by the system's libjpeg or the one Pillow bundles,
 which must decode a JPEG there), holds each
@@ -37,7 +41,9 @@ store), as users start the port:
     canvases, then the defaults: the native planar decode where it is
     built, its embeddings held against Pillow/RGB's by cosine), each
     /index split into decode, host prepare and encode, and
-    answers /search and /search_by_image, and text searches over two
+    answers /search and /search_by_image (each /index, the /search
+    requests and the /search_by_image requests must run every tower chain
+    as its fused kernel, by the engine's counters), and text searches over two
     seeded stores of 262,144 and 1,048,576 rows reach the block and the
     tree kernel through the engine's normal routing; ``host_scan`` then
     times the native host scanner against numpy over the 1,048,576-row
@@ -958,8 +964,11 @@ def write_store(folder: Path, n: int, gen: torch.Generator, d: int = D,
 
 def tower_times(engine) -> dict:
     """Device time of the image tower on one indexing batch of 224 px
-    inputs and of the text tower on one query, CUDA events."""
+    inputs and of the text tower on one query, CUDA events; the towers'
+    fused launches (``ops/tower.py``) and plain calls on the card."""
     from evossearch_tpu_torch.models import encode_image, encode_text
+    from evossearch_tpu_torch.ops import tower
+    from evossearch_tpu_torch.utils import Counters
 
     spec, dtype = engine.spec, engine._compute_dtype
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -968,11 +977,155 @@ def tower_times(engine) -> dict:
                          generator=gen, device="cuda").to(dtype)
     tokens = torch.randint(0, spec.vocab_size, (1, spec.context_length),
                            generator=gen, device="cuda")
-    image_ms = time_ms(lambda: encode_image(engine.params, images, dtype), reps=10)
-    text_ms = time_ms(lambda: encode_text(engine.params, tokens, dtype), reps=10)
+    with tower.counting(Counters()) as counts:
+        image_ms = time_ms(lambda: encode_image(engine.params, images, dtype), reps=10)
+        text_ms = time_ms(lambda: encode_text(engine.params, tokens, dtype), reps=10)
+    counts = counts.snapshot()
     return {"phase": "towers", "image_batch": batch, "image_tower_ms": image_ms,
             "image_tower_images_per_s": batch / image_ms * 1e3,
-            "text_tower_ms_batch1": text_ms}
+            "text_tower_ms_batch1": text_ms,
+            "tower_fused_launches": int(counts.get(tower.FUSED, 0)),
+            "tower_plain_cuda_calls": int(counts.get(tower.PLAIN_CUDA, 0))}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 steps between two bf16 tensors (+0 and -0 equal)."""
+    def ordered(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v >= 0, v, -(v + 32768))
+    return (ordered(a) - ordered(b)).abs()
+
+
+def tower_fused_phase(batch: int = 512) -> dict:
+    """Phase ``tower_fused``: the four fused kernels of ``ops/tower.py`` at
+    ViT-L/14's shapes for a batch of ``batch`` images (M = batch * 257
+    tokens, width 1024, 16 heads), each bit-checked against its plain
+    version (bias kernels equal, LayerNorm and softmax within one bf16
+    ulp) and timed alone (CUDA-event median of 20) beside its byte bound
+    (input read and output written once at 3.35 TB/s), its plain version
+    and, for LayerNorm, ``torch.nn.functional.layer_norm`` (on the weights
+    rounded to bf16: it takes no float32 weights beside a bf16 input on the
+    card); the same checks at the shapes the smoke's ViT-B/32 app runs
+    (its image tower at width 768, T = 50, and its text tower at width 512,
+    T = 77 with the causal mask, at 48 queries); then the L/14 image tower
+    at that batch and the text tower at batch 1, fused against plain (CUDA
+    events, cosine of the embeddings)."""
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
+    from evossearch_tpu_torch.models import CLIP, encode_image, encode_text
+    from evossearch_tpu_torch.ops import tower
+    from evossearch_tpu_torch.utils import Counters
+
+    spec = CLIP_MODEL_SPECS["ViT-L/14"]
+    w, heads, t = spec.vision_width, spec.vision_heads, spec.num_image_tokens
+    m, bf = batch * t, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    rows = {}
+
+    def row(name, fused, plain, nbytes, exact, launches, library=None):
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        dist = bf16_ulps(got, want)
+        worst, equal = int(dist.max()), float((dist == 0).float().mean())
+        check(worst == 0 if exact else worst <= 1,
+              f"tower kernel {name} {'equals' if exact else 'is within 1 bf16 ulp of'} "
+              f"its plain version ({worst} ulps)")
+        del got, want, dist
+        ms, plain_ms = time_ms(fused), time_ms(plain)
+        bound = nbytes / 3.35e12 * 1e3
+        rows[name] = {"shape": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": "bytes", "ratio": ms / bound, "max_ulps": worst,
+                      "bit_equal_share": equal}
+        if library is not None:
+            rows[name]["library_ms"] = time_ms(library)
+
+    def bias_row(name, rows_, n, gelu):
+        y = torch.randn(rows_, n, generator=gen, device="cuda") * 3
+        b = torch.randn(n, generator=gen, device="cuda")
+        fused = tower.bias_gelu_cast if gelu else tower.bias_cast
+        plain = tower.bias_gelu_cast_plain if gelu else tower.bias_cast_plain
+        row(name, lambda: fused(y, b, bf), lambda: plain(y, b, bf), rows_ * n * 6 + n * 4,
+            True, [rows_, n])
+
+    def layer_norm_row(name, rows_, width, library=False):
+        x = (torch.randn(rows_, width, generator=gen, device="cuda") * 2).to(bf)
+        scale = 1 + 0.2 * torch.randn(width, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(width, generator=gen, device="cuda")
+        # torch's own LayerNorm takes no float32 weights beside a bf16 input
+        # on the card, so it runs on the weights rounded to bf16
+        scale_bf, b_bf = scale.to(bf), b.to(bf)
+        lib = (lambda: torch.nn.functional.layer_norm(x, (width,), scale_bf, b_bf,
+                                                      tower.LN_EPS)) if library else None
+        row(name, lambda: tower.layer_norm(x, scale, b),
+            lambda: tower.layer_norm_plain(x, scale, b), rows_ * width * 4 + width * 8,
+            False, [rows_, width], lib)
+
+    def softmax_row(name, shape, head_dim, causal):
+        logits = torch.randn(*shape, generator=gen, device="cuda") * 24
+        sc = head_dim ** -0.5
+        row(name, lambda: tower.softmax_cast(logits, sc, causal, bf),
+            lambda: tower.softmax_cast_plain(logits, sc, causal, bf),
+            logits.numel() * 6, False, list(shape))
+
+    bias_row("bias_cast_qkv", m, 3 * w, False)
+    bias_row("bias_cast_wo", m, w, False)
+    bias_row("bias_gelu_cast", m, 4 * w, True)
+    layer_norm_row("layer_norm", m, w, library=True)
+    softmax_row("softmax_cast", (batch, heads, t, t), w // heads, False)
+    b32 = CLIP_MODEL_SPECS["ViT-B/32"]
+    for tag, width, nh, tt, nb, causal in (
+            ("b32_image", b32.vision_width, b32.vision_heads, b32.num_image_tokens, batch, False),
+            ("b32_text", b32.text_width, b32.text_heads, b32.context_length, 48, True)):
+        bias_row(f"bias_cast_{tag}", nb * tt, width, False)
+        bias_row(f"bias_gelu_cast_{tag}", nb * tt, 4 * width, True)
+        layer_norm_row(f"layer_norm_{tag}", nb * tt, width)
+        softmax_row(f"softmax_cast_{tag}", (nb, nh, tt, tt), width // nh, causal)
+    # per layer: bias_cast at 3w and twice at w, bias_gelu_cast, 2 LayerNorms, softmax
+    per_layer = {k: (rows["bias_cast_qkv"][k] + 2 * rows["bias_cast_wo"][k]
+                     + rows["bias_gelu_cast"][k] + 2 * rows["layer_norm"][k]
+                     + rows["softmax_cast"][k]) for k in ("ms", "plain_ms", "bound_ms")}
+
+    model = CLIP(spec).init_random_(torch.Generator().manual_seed(SEED + 41)).cuda().eval()
+    images = torch.randn(batch, spec.image_size, spec.image_size, 3, generator=gen,
+                         device="cuda")
+    tokens = torch.randint(0, spec.vocab_size, (1, spec.context_length), generator=gen,
+                           device="cuda")
+    with tower.counting(Counters()) as counts:
+        fused_img = encode_image(model, images, bf)
+        image_ms = time_ms(lambda: encode_image(model, images, bf), reps=10)
+        fused_txt = encode_text(model, tokens, bf)
+        text_ms = time_ms(lambda: encode_text(model, tokens, bf), reps=10)
+    counts = counts.snapshot()
+    on_card = tower._on_card
+    tower._on_card = lambda x: False
+    try:
+        plain_img = encode_image(model, images, bf)
+        plain_image_ms = time_ms(lambda: encode_image(model, images, bf), reps=10)
+        plain_txt = encode_text(model, tokens, bf)
+        plain_text_ms = time_ms(lambda: encode_text(model, tokens, bf), reps=10)
+    finally:
+        tower._on_card = on_card
+    gap_img = float((1 - (fused_img.double() * plain_img.double()).sum(-1)).max())
+    gap_txt = float((1 - (fused_txt.double() * plain_txt.double()).sum(-1)).max())
+    bit_equal = torch.equal(fused_img, plain_img) and torch.equal(fused_txt, plain_txt)
+    check(gap_img <= 2e-5 and gap_txt <= 2e-5,
+          f"the fused L/14 towers within 1 - cos 2e-5 of the plain ones ({gap_img}, {gap_txt})")
+    # 7 chains a block, ln_pre and ln_post, ln_final; each tower ran 14 times
+    # (once, then time_ms's 3 warm-ups and 10 runs)
+    chains = 7 * (spec.vision_layers + spec.text_layers) + 3
+    launches = int(counts.get(tower.FUSED, 0))
+    check(launches == 14 * chains and counts.get(tower.PLAIN_CUDA, 0) == 0,
+          f"every tower chain on the card launched its kernel ({counts})")
+    del model, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "tower_fused", "model": spec.name, "batch": batch, "tokens": m,
+            "kernels": rows, "per_layer": per_layer,
+            "per_batch_ms": {k: v * spec.vision_layers for k, v in per_layer.items()},
+            "image_tower_ms": image_ms, "image_tower_images_per_s": batch / image_ms * 1e3,
+            "plain_image_tower_ms": plain_image_ms,
+            "text_tower_ms_batch1": text_ms, "plain_text_tower_ms_batch1": plain_text_ms,
+            "cos_gap_image": gap_img, "cos_gap_text": gap_txt, "towers_bit_equal": bit_equal,
+            "tower_fused_launches": launches}
 
 
 def library_path(topk, engine, folder: Path) -> dict:
@@ -1386,7 +1539,9 @@ def index_run(client, engine, imgs: Path, mode: str) -> dict:
     """One /index of the 64 photos, split into decode, host prepare and
     encode (upload, device preprocess, image tower and the copy back),
     host clock, from the engine's stage timers, with the decode routes
-    counted."""
+    and the image tower's fused and plain chains counted; fails unless
+    every chain on the card launched its fused kernel (a ViT tower) or
+    none ran (a ResNet tower, which has none of these chains)."""
     stages = ("index_decode", "index_prepare", "prep_encode", "prep_encode_fetch")
     before_t = dict(engine.timers.totals)
     before_c = engine.counters.snapshot()
@@ -1398,10 +1553,25 @@ def index_run(client, engine, imgs: Path, mode: str) -> dict:
     spent = {s: engine.timers.totals.get(s, 0.0) - before_t.get(s, 0.0) for s in stages}
     counts = {k: v - before_c.get(k, 0) for k, v in engine.counters.snapshot().items()
               if k.startswith("decode_") and v - before_c.get(k, 0)}
+    towers = tower_counts(engine, before_c)
+    vit = engine.spec.family == "vit"
+    check((towers["fused"] > 0) == vit and towers["plain"] == 0,
+          f"/index ({mode}, {engine.spec.name}) ran every tower chain as its fused kernel "
+          f"({towers})")
     return {"index_s": wall, "index_images_per_s": 64 / wall,
             "decode_s": spent["index_decode"], "prepare_s": spent["index_prepare"],
             "encode_s": spent["prep_encode"] + spent["prep_encode_fetch"],
-            "decode_counts": counts}
+            "decode_counts": counts, "tower_counts": towers}
+
+
+def tower_counts(engine, before: dict) -> dict:
+    """The engine's ``tower_fused_launches`` and ``tower_plain_cuda_calls``
+    since the counter snapshot ``before``."""
+    from evossearch_tpu_torch.ops import tower
+
+    now = engine.counters.snapshot()
+    return {key: int(now.get(name, 0) - before.get(name, 0))
+            for key, name in (("fused", tower.FUSED), ("plain", tower.PLAIN_CUDA))}
 
 
 def stored_by_path(imgs: Path) -> dict:
@@ -2052,6 +2222,7 @@ def run_main_path(topk, search, work: Path) -> dict:
     zero_launches(topk)
     # -- phase 4: the HTTP routes --
     index_runs = index_twice(client, engine, imgs)
+    before_c = engine.counters.snapshot()
     search_ms = []
     for text in ("a photo of a dog", "a red car", "mountains at sunset",
                  "a photo of a dog"):
@@ -2065,6 +2236,10 @@ def run_main_path(topk, search, work: Path) -> dict:
               and all(math.isfinite(v) for v in sims)
               and sims == sorted(sims, reverse=True),
               f"/search answered 12 ranked results ({r.status_code})")
+    search_towers = tower_counts(engine, before_c)
+    check(search_towers["fused"] > 0 and search_towers["plain"] == 0,
+          f"/search ran every text tower chain as its fused kernel ({search_towers})")
+    before_c = engine.counters.snapshot()
     image_ms = []
     for p in jpegs[:3]:
         t0 = time.perf_counter()
@@ -2077,8 +2252,12 @@ def run_main_path(topk, search, work: Path) -> dict:
         check(r.status_code == 200 and len(res) == 6
               and res[0]["filename"] == p.name and res[0]["similarity"] > 0.99,
               f"/search_by_image finds the uploaded {p.name} first")
+    image_towers = tower_counts(engine, before_c)
+    check(image_towers["fused"] > 0 and image_towers["plain"] == 0,
+          f"/search_by_image ran every tower chain as its fused kernel ({image_towers})")
     emit({"phase": "http_main_path", "images": 64, "index": index_runs,
-          "search_ms": search_ms, "search_by_image_ms": image_ms})
+          "search_ms": search_ms, "search_by_image_ms": image_ms,
+          "search_tower_counts": search_towers, "search_by_image_tower_counts": image_towers})
 
     # -- phase 5: the kernels through the engine's normal routing --
     results = {}
@@ -3114,6 +3293,8 @@ def main() -> int:
           "the build reports the stream kernel's six instantiations and its final merge")
     check(all(spill == 0 for _, spill in stream_regs.values()),
           "no kernel of the stream library spills registers")
+    check(spills.get("tower_fused", 0) == 0, "no kernel of the tower library spills registers")
+    emit(tower_fused_phase())
 
     rows = kernel_checks(topk, search)
     rows[("sq8", "int8", 48)] = sq8_checks(topk)

@@ -45,6 +45,7 @@ from .core.constants import CLIPModelSpec
 from .core.device import resolve_device
 from .index import build_index
 from .index.store import IndexReader, as_float32
+from .ops import tower
 from .tokenizer import load_tokenizer
 from .utils import Counters, StageTimer, get_logger
 
@@ -205,7 +206,8 @@ class SearchEngine:
         from .models import encode_text
 
         t = torch.as_tensor(np.asarray(tokens), device=self.device)
-        return encode_text(self.params, t, self._compute_dtype)
+        with tower.counting(self.counters):
+            return encode_text(self.params, t, self._compute_dtype)
 
     def _prep_encode(self, params, canvases, a_h_u, a_w_u,
                      size_idx) -> torch.Tensor:
@@ -217,7 +219,8 @@ class SearchEngine:
         x = device_preprocess_indexed(
             canvases, a_h_u, a_w_u, size_idx, out_dtype=self._compute_dtype
         )
-        return encode_image(params, x, self._compute_dtype)
+        with tower.counting(self.counters):
+            return encode_image(params, x, self._compute_dtype)
 
     def _prep_encode_planar(self, params, y, c, a_h_y, a_w_y, a_h_c, a_w_c,
                             size_idx) -> torch.Tensor:
@@ -231,7 +234,8 @@ class SearchEngine:
             y, c, a_h_y, a_w_y, a_h_c, a_w_c, size_idx,
             out_dtype=self._compute_dtype,
         )
-        return encode_image(params, x, self._compute_dtype)
+        with tower.counting(self.counters):
+            return encode_image(params, x, self._compute_dtype)
 
     @functools.cached_property
     def _encode_devices(self) -> list | None:

@@ -12,6 +12,12 @@ Counterpart of ``evossearch_tpu/models/layers.py``, with the same numerics:
   * LayerNorm runs in float32; attention logits and softmax in float32;
   * CLIP uses quick-GELU (``x * sigmoid(1.702 x)``), not tanh-GELU.
 
+The elementwise chains between the products (a dense layer's bias and
+cast, the MLP's bias, quick-GELU and cast, LayerNorm, the attention's
+scale, mask, softmax and cast) are ``ops/tower.py``'s calls: one fused CUDA
+kernel each for bf16 activations on the card when autograd records
+nothing, their plain torch versions otherwise.
+
 float32 products never use TF32 (``torch.backends.cuda.matmul.allow_tf32``
 stays False, PyTorch's default): the JAX package computes them at full
 float32 precision.
@@ -25,7 +31,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-LN_EPS = 1e-5  # OpenAI/HF CLIP LayerNorm epsilon
+from ..ops import tower
+from ..ops.tower import quick_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,36 +99,30 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return MatmulF32.apply(a, b)
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
-def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None):
+def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
+           gelu: bool = False):
+    """``x @ kernel + bias`` in the compute dtype, quick-GELU after it when
+    ``gelu`` (the MLP's first product)."""
     y = matmul_f32(x, kernel.to(x.dtype))
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(x.dtype)
+    if bias is None:
+        y = y.to(x.dtype)
+        return quick_gelu(y) if gelu else y
+    return (tower.bias_gelu_cast if gelu else tower.bias_cast)(y, bias, x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last dim in float32, cast back to ``x``'s dtype."""
-    dtype = x.dtype
-    x = x.float()
-    mean = x.mean(dim=-1, keepdim=True)
-    var = (x - mean).square().mean(dim=-1, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + LN_EPS)
-    return (y * scale.float() + bias.float()).to(dtype)
+    # the kernel reads contiguous rows; the text tower's residual stream
+    # follows the token ids' layout, and ln_post takes the class token's view
+    return tower.layer_norm(x.contiguous(), scale, bias)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
     """Scaled dot-product attention of (B, H, T, hd) heads in the compute
     dtype: float32 logits and softmax, output in the compute dtype."""
-    t, hd = q.shape[-2], q.shape[-1]
-    logits = matmul_f32(q, k.transpose(-1, -2)) * (hd ** -0.5)
-    if causal:
-        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    hd = q.shape[-1]
+    logits = matmul_f32(q, k.transpose(-1, -2))
+    weights = tower.softmax_cast(logits, hd ** -0.5, causal, q.dtype)
     return matmul_f32(weights, v).to(q.dtype)
 
 
@@ -170,7 +171,7 @@ class MLP(nn.Module):
         self.b2 = nn.Parameter(torch.zeros(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _dense(quick_gelu(_dense(x, self.w1, self.b1)), self.w2, self.b2)
+        return _dense(_dense(x, self.w1, self.b1, gelu=True), self.w2, self.b2)
 
 
 class Block(nn.Module):

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-KERNELS = ("topk_block", "topk_tree", "topk_sq8", "topk_stream")
+KERNELS = ("topk_block", "topk_tree", "topk_sq8", "topk_stream", "tower_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -31,6 +31,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # entry point -> (library, C symbol, C signature) (see the .cu files)
 _SIGNATURES = {
     "topk_block": ("topk_block", "evs_topk_block",
@@ -43,6 +45,10 @@ _SIGNATURES = {
                          [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "topk_stream": ("topk_stream", "evs_topk_stream",
                     [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "bias_cast": ("tower_fused", "evs_bias_cast", [_P, _P, _P, _L, _I, _P]),
+    "bias_gelu_cast": ("tower_fused", "evs_bias_gelu_cast", [_P, _P, _P, _L, _I, _P]),
+    "layer_norm": ("tower_fused", "evs_layer_norm", [_P, _P, _P, _P, _L, _I, _F, _F, _P]),
+    "softmax_cast": ("tower_fused", "evs_softmax_cast", [_P, _P, _L, _I, _F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -26,32 +26,36 @@ def sub_seed(seed: int, tag: str) -> int:
 # -- weights ----------------------------------------------------------------
 
 
-def weight_layout(model: dict) -> list[tuple[str, tuple, float, float]]:
-    """(name, shape, mean, std) of every tensor of the two towers, in one
-    fixed order. Names and layouts are those the program's CLIP module
-    takes (dense kernels (in, out); the patch embedding as a
-    (patch*patch*3, width) kernel over patches flattened (ph, pw, c)),
-    and the reference reads the same names. Standard deviations follow
-    OpenAI's CLIP init; biases and LayerNorm parameters are drawn too
-    (std 0.02 and 1 +- 0.05), so that a fault in their use shows."""
-    out: list[tuple[str, tuple, float, float]] = [("logit_scale", (), 2.6592600, 0.0)]
+FAMILIES = ("vit", "resnet")
 
-    def tower(prefix: str, w: int, layers: int) -> None:
-        proj_std = (w ** -0.5) * ((2 * max(layers, 1)) ** -0.5)
-        for i in range(layers):
-            p = f"{prefix}.blocks.{i}."
-            out.extend([
-                (p + "ln_1.scale", (w,), 1.0, 0.05), (p + "ln_1.bias", (w,), 0.0, 0.02),
-                (p + "attn.wqkv", (w, 3 * w), 0.0, w ** -0.5),
-                (p + "attn.bqkv", (3 * w,), 0.0, 0.02),
-                (p + "attn.wo", (w, w), 0.0, proj_std), (p + "attn.bo", (w,), 0.0, 0.02),
-                (p + "ln_2.scale", (w,), 1.0, 0.05), (p + "ln_2.bias", (w,), 0.0, 0.02),
-                (p + "mlp.w1", (w, 4 * w), 0.0, (2 * w) ** -0.5),
-                (p + "mlp.b1", (4 * w,), 0.0, 0.02),
-                (p + "mlp.w2", (4 * w, w), 0.0, proj_std), (p + "mlp.b2", (w,), 0.0, 0.02),
-            ])
 
-    vw, tw, e = model["vision_width"], model["text_width"], model["embed_dim"]
+def family(model: dict) -> str:
+    """The model family of a configuration's ``model`` block: its
+    ``family`` key, ``"vit"`` where it has none."""
+    name = model.get("family", "vit")
+    if name not in FAMILIES:
+        raise ValueError(f"unknown model family {name!r}; known: {', '.join(FAMILIES)}")
+    return name
+
+
+def _transformer(out: list, prefix: str, w: int, layers: int) -> None:
+    proj_std = (w ** -0.5) * ((2 * max(layers, 1)) ** -0.5)
+    for i in range(layers):
+        p = f"{prefix}.blocks.{i}."
+        out.extend([
+            (p + "ln_1.scale", (w,), 1.0, 0.05), (p + "ln_1.bias", (w,), 0.0, 0.02),
+            (p + "attn.wqkv", (w, 3 * w), 0.0, w ** -0.5),
+            (p + "attn.bqkv", (3 * w,), 0.0, 0.02),
+            (p + "attn.wo", (w, w), 0.0, proj_std), (p + "attn.bo", (w,), 0.0, 0.02),
+            (p + "ln_2.scale", (w,), 1.0, 0.05), (p + "ln_2.bias", (w,), 0.0, 0.02),
+            (p + "mlp.w1", (w, 4 * w), 0.0, (2 * w) ** -0.5),
+            (p + "mlp.b1", (4 * w,), 0.0, 0.02),
+            (p + "mlp.w2", (4 * w, w), 0.0, proj_std), (p + "mlp.b2", (w,), 0.0, 0.02),
+        ])
+
+
+def _vit_visual(out: list, model: dict) -> None:
+    vw, e = model["vision_width"], model["embed_dim"]
     grid = model["image_size"] // model["patch_size"]
     out.extend([
         ("visual.class_embedding", (vw,), 0.0, vw ** -0.5),
@@ -60,14 +64,82 @@ def weight_layout(model: dict) -> list[tuple[str, tuple, float, float]]:
         ("visual.patch_embed.kernel", (model["patch_size"] ** 2 * 3, vw), 0.0, vw ** -0.5),
         ("visual.ln_pre.scale", (vw,), 1.0, 0.05), ("visual.ln_pre.bias", (vw,), 0.0, 0.02),
     ])
-    tower("visual", vw, model["vision_layers"])
+    _transformer(out, "visual", vw, model["vision_layers"])
     out.extend([
         ("visual.ln_post.scale", (vw,), 1.0, 0.05), ("visual.ln_post.bias", (vw,), 0.0, 0.02),
+    ])
+
+
+# The mean of each block's last BatchNorm scale is BRANCH_GAIN over the
+# square root of its stage's block count, so that every residual branch
+# adds a share and a stage's blocks together grow the stream by a bounded
+# factor at any depth (through RN50x64's 64 blocks the stream's RMS stays
+# within 1.3-1.7x of the stem's output; tests/test_portbench_resnet.py).
+# Larger gains make the tower amplify rounding: at 1.0 bf16 reads ten
+# times the gap it reads at 0.5.
+BRANCH_GAIN = 0.5
+
+
+def _resnet_visual(out: list, model: dict) -> None:
+    w, c, e = model["vision_width"], model["vision_width"] * 32, model["embed_dim"]
+
+    def conv(p: str, k: int, cin: int, cout: int) -> None:
+        out.append((p + ".kernel", (k, k, cin, cout), 0.0, (k * k * cin) ** -0.5))
+
+    def bn(p: str, ch: int, scale: float = 1.0) -> None:
+        out.extend([(p + ".scale", (ch,), scale, 0.05 * scale), (p + ".bias", (ch,), 0.0, 0.02),
+                    (p + ".mean", (ch,), 0.0, 0.02), (p + ".var", (ch,), 1.0, 0.05)])
+
+    for i, (k, cin, cout) in enumerate([(3, 3, w // 2), (3, w // 2, w // 2), (3, w // 2, w)]):
+        conv(f"visual.stem.conv{i + 1}", k, cin, cout)
+        bn(f"visual.stem.bn{i + 1}", cout)
+    cin = w
+    for s, blocks in enumerate(model["vision_layers"]):
+        planes = w * 2 ** s
+        gain = BRANCH_GAIN / blocks ** 0.5
+        for b in range(blocks):
+            p = f"visual.stage{s + 1}." + ("down" if b == 0 else f"rest.{b - 1}")
+            conv(p + ".conv1", 1, cin, planes)
+            bn(p + ".bn1", planes)
+            conv(p + ".conv2", 3, planes, planes)
+            bn(p + ".bn2", planes)
+            conv(p + ".conv3", 1, planes, planes * 4)
+            bn(p + ".bn3", planes * 4, gain)
+            if b == 0:
+                conv(p + ".downsample.conv", 1, cin, planes * 4)
+                bn(p + ".downsample.bn", planes * 4)
+            cin = planes * 4
+    tokens = (model["image_size"] // 32) ** 2 + 1
+    p = "visual.attnpool."
+    out.append((p + "pos_embed", (tokens, c), 0.0, c ** -0.5))
+    for name in ("q", "k", "v"):
+        out.extend([(p + f"w{name}", (c, c), 0.0, c ** -0.5), (p + f"b{name}", (c,), 0.0, 0.02)])
+    out.extend([(p + "wc", (c, e), 0.0, c ** -0.5), (p + "bc", (e,), 0.0, 0.02)])
+
+
+def weight_layout(model: dict) -> list[tuple[str, tuple, float, float]]:
+    """(name, shape, mean, std) of every tensor of the two towers, in one
+    fixed order. Names and layouts are those the program's CLIP module
+    takes (dense kernels (in, out); the ViT's patch embedding as a
+    (patch*patch*3, width) kernel over patches flattened (ph, pw, c); the
+    modified ResNet's conv kernels HWIO (kh, kw, in, out)), and the
+    reference reads the same names. Standard deviations follow OpenAI's
+    CLIP init; biases, LayerNorm and BatchNorm parameters are drawn too
+    (std 0.02, scales 1 +- 0.05), so that a fault in their use shows. The
+    ResNet's BatchNorm statistics listed here (0 +- 0.02, 1 +- 0.05) are
+    replaced by ``make_weights``. OpenAI zeroes each Bottleneck's last
+    BatchNorm scale, which would leave every residual branch out of the
+    output: here it is drawn with the mean ``BRANCH_GAIN / sqrt(blocks in
+    the stage)``."""
+    out: list[tuple[str, tuple, float, float]] = [("logit_scale", (), 2.6592600, 0.0)]
+    (_resnet_visual if family(model) == "resnet" else _vit_visual)(out, model)
+    tw, e = model["text_width"], model["embed_dim"]
+    out.extend([
         ("text.token_embed", (model["vocab_size"], tw), 0.0, 0.02),
         ("text.pos_embed", (model["context_length"], tw), 0.0, 0.01),
         ("text.proj", (tw, e), 0.0, tw ** -0.5),
     ])
-    tower("text", tw, model["text_layers"])
+    _transformer(out, "text", tw, model["text_layers"])
     out.extend([
         ("text.ln_final.scale", (tw,), 1.0, 0.05), ("text.ln_final.bias", (tw,), 0.0, 0.02),
     ])
@@ -77,7 +149,11 @@ def weight_layout(model: dict) -> list[tuple[str, tuple, float, float]]:
 def make_weights(model: dict, seed: int, device) -> dict:
     """Every tensor of ``weight_layout`` in float32 on ``device``: views of
     one seeded normal draw made on the device in a single call, scaled in
-    place."""
+    place. A ResNet's BatchNorm statistics are then set from a seeded
+    batch of photo-like images (``reference.resnet.calibrate_batchnorm``),
+    as a released model's are those of its training data. A run makes the
+    weights again for its check: the statistics may then differ in their
+    last bits (the convs' summation order), far below any gap compared."""
     import torch
 
     layout = weight_layout(model)
@@ -89,7 +165,38 @@ def make_weights(model: dict, seed: int, device) -> dict:
         n = int(np.prod(shape))
         out[name] = flat[start : start + n].view(shape).mul_(std).add_(mean)
         start += n
+    if family(model) == "resnet":
+        from portbench.reference import resnet
+
+        resnet.calibrate_batchnorm(out, calibration_images(model, seed, device), model)
     return out
+
+
+# Photo-like images whose statistics the ResNet's BatchNorm statistics are
+# set from: the photo parameters of traffic/index_coco640.json (COCO
+# val2017's 4:3 photos), made at the model's input size as CLIP's resize
+# and centre crop would leave them.
+CALIBRATION_PHOTO = dict(amplitudes=[40, 24, 20, 40], cells=[4, 16, 80, 320], noise=12)
+CALIBRATION_IMAGES = 16
+
+
+def calibration_images(model: dict, seed: int, device):
+    """``CALIBRATION_IMAGES`` photo-like images of the model's input size,
+    normalized by CLIP's mean and std, (B, S, S, 3) float32, drawn from
+    the seed apart from the traffic's photos."""
+    import torch
+
+    from portbench.reference.image import MEAN, STD
+
+    s = model["image_size"]
+    w = s * 4 // 3
+    px = photo_batch(sub_seed(seed, "calibration"), 0,
+                     dict(CALIBRATION_PHOTO, height=s, width=w), device)
+    lo = (w - s) // 2
+    x = torch.as_tensor(px[:CALIBRATION_IMAGES, :, lo : lo + s], device=device,
+                        dtype=torch.float32)
+    return (x - torch.as_tensor(MEAN, device=device, dtype=torch.float32)) / torch.as_tensor(
+        STD, device=device, dtype=torch.float32)
 
 
 # -- the library's rows -----------------------------------------------------

@@ -1,13 +1,15 @@
 """The yardstick's arithmetic: the chip's published peaks and the FLOPs and
 bytes the work needs, counted from shapes.
 
-The two tower formulas are copies of ``_vit_fwd_flops`` and
-``_text_fwd_flops`` in ``evossearch_tpu_torch/bench.py`` (kept here so that
-no later change to the program moves the yardstick); they take the
+The tower formulas are copies of ``_vit_fwd_flops``, ``_resnet_fwd_flops``
+and ``_text_fwd_flops`` in ``evossearch_tpu_torch/bench.py`` (kept here so
+that no later change to the program moves the yardstick); they take the
 configuration's ``model`` block (``portbench/configs/<config>.json``).
 """
 
 from __future__ import annotations
+
+from portbench.data import family
 
 # NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit.
 PEAK_BF16_FLOPS = 989e12
@@ -24,6 +26,41 @@ def vit_fwd_flops(model: dict) -> float:
     patch = 2 * t * (model["patch_size"] ** 2 * 3) * w
     proj = 2 * w * model["embed_dim"]
     return model["vision_layers"] * per_layer + patch + proj
+
+
+def resnet_fwd_flops(model: dict) -> float:
+    """Forward FLOPs per image of a modified-ResNet image tower: the convs
+    and the attention pool's projections."""
+    s = model["image_size"] // 2  # stem convs run at half resolution
+    w = model["vision_width"]
+    f = (2 * s * s * 9 * 3 * (w // 2)
+         + 2 * s * s * 9 * (w // 2) * (w // 2)
+         + 2 * s * s * 9 * (w // 2) * w)
+    s //= 2  # stem avg pool
+    cin = w
+    for i, n_blocks in enumerate(model["vision_layers"]):
+        planes = w * (2 ** i)
+        stride = 1 if i == 0 else 2
+        s_out = s // stride
+        for b in range(n_blocks):
+            c_in = cin if b == 0 else planes * 4
+            sp_in = s if b == 0 else s_out
+            f += 2 * sp_in * sp_in * c_in * planes  # conv1 1x1
+            f += 2 * sp_in * sp_in * 9 * planes * planes  # conv2 3x3
+            f += 2 * s_out * s_out * planes * planes * 4  # conv3 1x1
+            if b == 0:
+                f += 2 * s_out * s_out * c_in * planes * 4  # shortcut conv
+        cin, s = planes * 4, s_out
+    c, t = w * 32, (model["image_size"] // 32) ** 2 + 1
+    f += 2 * c * c + 2 * 2 * t * c * c  # q (1 token) + k/v projections
+    f += 2 * c * model["embed_dim"]  # c_proj
+    return f
+
+
+def image_fwd_flops(model: dict) -> float:
+    """Forward FLOPs per image of the configuration's image tower, by its
+    ``family`` (``vit`` where the key is absent)."""
+    return (resnet_fwd_flops if family(model) == "resnet" else vit_fwd_flops)(model)
 
 
 def text_fwd_flops(model: dict) -> float:

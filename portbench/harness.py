@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+from portbench.data import family
+
 ROOT = Path(__file__).resolve().parent
 
 
@@ -63,10 +65,13 @@ class Run:
 
 
 def model_spec(model: dict):
-    """The program's CLIPModelSpec for a configuration's ``model`` block."""
-    from evossearch_tpu_torch.core.constants import CLIPModelSpec
+    """The program's spec for a configuration's ``model`` block: a
+    CLIPModelSpec, or a CLIPResNetSpec for the ``resnet`` family, from the
+    fields of that class."""
+    from evossearch_tpu_torch.core.constants import CLIPModelSpec, CLIPResNetSpec
 
-    return CLIPModelSpec(**{f.name: model[f.name] for f in dataclasses.fields(CLIPModelSpec)})
+    cls = CLIPResNetSpec if family(model) == "resnet" else CLIPModelSpec
+    return cls(**{f.name: model[f.name] for f in dataclasses.fields(cls)})
 
 
 def engine_config(config: dict):
@@ -207,25 +212,58 @@ def finish_client(proc: subprocess.Popen, out_path: Path, timeout: float) -> dic
     return json.loads(out_path.read_text())
 
 
-def _profile(torch):
+def _profile(torch, host: bool = True):
     from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     # every thread, also those started before the profiler (the program's
     # batcher threads); without it their ops and kernels go unrecorded
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [
+        ProfilerActivity.CUDA]
+    return profile(activities=activities,
                    experimental_config=_ExperimentalConfig(profile_all_threads=True))
 
 
-def warm_profiler() -> None:
+def warm_profiler(host: bool = True) -> None:
     """Start and stop the profiler once in set-up: its first start loads
     and sets up CUPTI, which takes seconds that would otherwise fall into
-    the traced sub-window."""
+    the traced window."""
     import torch
 
-    with _profile(torch):
+    with _profile(torch, host):
         if torch.cuda.is_available():
             torch.ones(8, device="cuda").sum().item()
+
+
+def start_card_trace():
+    """A ``torch.profiler`` of the card's activity alone (kernels, copies,
+    memsets; no host ops), started now; ``card_busy_s`` stops it."""
+    import torch
+
+    prof = _profile(torch, host=False)
+    prof.start()
+    return prof
+
+
+def card_busy_s(run: Run, prof) -> float:
+    """Stops ``start_card_trace``'s profiler once the card has finished
+    what it was given, and returns the seconds in which an operation ran
+    on the card meanwhile (the union of device spans, ``trace.reduce_trace``)."""
+    import torch
+
+    from portbench import trace
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    path = run.tmp / "card_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    reduced = trace.reduce_trace(events, 0.0)
+    copies = sum(t for name, t in reduced["device_ops"].items() if name.startswith("Memcpy"))
+    log(f"card trace: busy {reduced['busy_s']:.4f} s, of which copies take {copies:.4f} s")
+    return reduced["busy_s"]
 
 
 def traced_subwindow(engine, t0: float, offset: float, length: float) -> dict:

@@ -4,7 +4,7 @@ LAYER = "device"
 UNIT = "%"
 BETTER = "lower"
 SOURCE = "device_trace"
-MOVES = "index_images_per_s"
+MOVES = "index_card_images_per_s"
 
 
 def read(ctx: dict):

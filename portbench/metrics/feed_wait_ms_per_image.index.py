@@ -4,7 +4,7 @@ LAYER = "index pipeline"
 UNIT = "ms"
 BETTER = "lower"
 SOURCE = "program_span"
-MOVES = "index_images_per_s"
+MOVES = "index_card_images_per_s"
 
 
 def read(ctx: dict):

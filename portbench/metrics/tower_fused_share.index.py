@@ -4,7 +4,7 @@ LAYER = "model step"
 UNIT = "%"
 BETTER = "higher"
 SOURCE = "program_counter"
-MOVES = "index_images_per_s"
+MOVES = "index_card_images_per_s"
 
 
 def read(ctx: dict):

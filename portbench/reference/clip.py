@@ -12,6 +12,8 @@
   block: x + attn(ln_1(x)); x + mlp(ln_2(x)); quick-GELU x*sigmoid(1.702x);
          LayerNorm eps 1e-5; one fused qkv product, heads of width/heads.
 
+The modified-ResNet image tower of the ``resnet`` family is ``resnet.py``.
+
 Weights are a dict of the names ``portbench.data.weight_layout`` gives
 (dense kernels stored (in, out)). The same seeded tensors are handed to
 the program.
@@ -99,7 +101,12 @@ def encode_text(w: dict, tokens: torch.Tensor, model: dict, precision: str = "fp
 
 @torch.no_grad()
 def encode_image(w: dict, images: torch.Tensor, model: dict, precision: str = "fp32"):
-    """(B, S, S, 3) normalized float32 pixels -> (B, embed_dim) unit rows."""
+    """(B, S, S, 3) normalized float32 pixels -> (B, embed_dim) unit rows;
+    a configuration of the ``resnet`` family takes ``resnet.encode_image``."""
+    if model.get("family", "vit") == "resnet":
+        from . import resnet
+
+        return resnet.encode_image(w, images, model, precision)
     with no_tf32():
         b, s, _, c = images.shape
         p = model["patch_size"]

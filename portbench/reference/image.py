@@ -10,7 +10,12 @@ for JPEGs (``evossearch_tpu_torch/preprocess/io.py`` and ``pipeline.py``,
    no chroma upsampling takes place.
 2. Chroma brought to the 4:2:0 grid by a 2x2 box average rounded as
    ``(sum + 2) >> 2``, the duplicate row or column standing in past an
-   odd edge.
+   odd edge. At full scale (n = 8, a target above an eighth less than
+   the short side, as 448 for 480 rows) the port reads the file's own
+   4:2:0 chroma samples; Pillow's full-scale decode upsamples them with
+   libjpeg's fancy filter, which no box average undoes, so the chroma
+   comes from a decode at scale 1/2 instead, where libjpeg IDCTs the
+   chroma blocks at their own 8x8 size: the file's samples.
 3. CLIP's transform (``clip/clip.py:_transform``: bicubic resize of the
    shorter side to 224, centre crop) as Pillow computes it
    (``Resample.c``, ``precompute_coeffs``: cubic a = -0.5, support 2
@@ -88,7 +93,7 @@ def _pass(plane: np.ndarray, a_h: np.ndarray, a_w: np.ndarray) -> np.ndarray:
 
 def preprocess(path: str, target: int = 224) -> np.ndarray:
     """A JPEG file -> (target, target, 3) float32 normalised pixels."""
-    from PIL import Image
+    from PIL import Image, JpegImagePlugin
 
     with Image.open(path) as img:
         w0, h0 = img.size
@@ -99,12 +104,20 @@ def preprocess(path: str, target: int = 224) -> np.ndarray:
         if img.mode != "YCbCr":
             raise ValueError(f"{path}: not a YCbCr JPEG ({img.mode})")
         ycc = np.asarray(img, dtype=np.int64)
+        full_420 = n == 8 and JpegImagePlugin.get_sampling(img) == 2
     h, w = ycc.shape[:2]
     y = ycc[:, :, 0].astype(np.float64)
-    c = ycc[:, :, 1:]
-    c = np.concatenate([c, c[-1:]], 0) if h % 2 else c
-    c = np.concatenate([c, c[:, -1:]], 1) if w % 2 else c
-    c = (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2] + 2) >> 2
+    if full_420:
+        with Image.open(path) as img:
+            img.draft("YCbCr", (math.ceil(w0 / 2), math.ceil(h0 / 2)))
+            c = np.asarray(img, dtype=np.int64)[:, :, 1:]
+        if c.shape[:2] != ((h + 1) // 2, (w + 1) // 2):
+            raise ValueError(f"{path}: chroma planes {c.shape[:2]} at scale 1/2")
+    else:
+        c = ycc[:, :, 1:]
+        c = np.concatenate([c, c[-1:]], 0) if h % 2 else c
+        c = np.concatenate([c, c[:, -1:]], 1) if w % 2 else c
+        c = (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2] + 2) >> 2
     if h <= w:
         rh, rw = target, max(target, int(target * w / h))
     else:

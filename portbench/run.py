@@ -6,7 +6,8 @@ The cell is ``workloads/<cell>.json``; it names a configuration
 (``configs/<config>.json``) and a traffic mix (``traffic/<traffic>.json``),
 whose ``kind`` names the generator ``traffic/<kind>.py``. With
 ``--trace 0`` the last line of standard output holds the end-to-end
-metrics the generator measured on the host clock and ``setup_s``; with
+metrics the generator measured (on the host clock, or from a trace of the
+card's activity) and ``setup_s``; with
 ``--trace 1`` it holds every per-layer metric (``metrics/<metric>.py``)
 whose reader finds something to read in this cell. Either way the
 outputs of the timed path are checked against the reference after the
@@ -105,7 +106,7 @@ def execute(run: harness.Run, kind, root: Path = ROOT) -> dict:
         metrics = per_layer(ctx, set(result["e2e"]) | {"setup_s"}, root)
     else:
         metrics = {k: {"value": v, "unit": run.workload["units"][k]}
-                   for k, v in result["e2e"].items()}
+                   for k, v in result["e2e"].items() if v is not None}
         metrics["setup_s"] = {"value": result["t0"] - run.started, "unit": "s"}
     out = {"correct": ok, "attempted": result["attempted"], "failed": result["failed"],
            "metrics": metrics, "device": dict(result["card"])}

@@ -69,10 +69,16 @@ def test_limit_decides_correct(tmp_path):
 
 def test_repo_cells_metrics_and_kinds_are_found():
     readers = bench_run.metric_readers()
-    assert len(readers) == 9
+    assert set(readers) == {
+        "card_wait_ms_per_image.index", "decode_ms_per_image.index", "device_idle.index",
+        "device_idle.search", "engine_search_ms.search", "feed_wait_ms_per_image.index",
+        "fill_ms_per_pass.index", "host_images_per_s.index", "http_host_ms.search", "index_mfu",
+        "queries_per_dispatch.search", "search_mfu", "store_ms_per_image.index",
+        "topk_roofline.search", "tower_fused_share.index"}
     for name, mod in readers.items():
-        assert mod.MOVES in ("search_p95_ms", "index_images_per_s"), name
-        assert mod.SOURCE in ("device_trace", "program_span", "program_counter"), name
+        assert mod.MOVES in ("search_p95_ms", "index_card_images_per_s"), name
+        assert mod.SOURCE in ("device_trace", "program_span", "program_counter",
+                              "host_clock"), name
     for cell in ("search.b32.lib1m.fresh", "search.b32.lib50k.fresh",
                  "index.l14.coco640", "index.b32.coco640"):
         workload, config, traffic = bench_run.load_cell(cell)

@@ -59,7 +59,9 @@ def test_search_faults_fail(tmp_path, fault):
     assert out["correct"] is False, out["compared"]
 
 
-INDEX = dict(photos=48, max_passes=3, warm_photos=16, sample_per_pass=16)
+# every row of a pass is compared at this size, so that the one altered row a
+# batch is always among them
+INDEX = dict(photos=48, max_passes=3, warm_photos=16, sample_per_pass=48)
 
 
 class _Ready:

@@ -46,10 +46,10 @@ def test_reader(name):
     assert mod.read(_ctx(STAGES)) == pytest.approx(expect, rel=1e-12)
     assert mod.read(dict(_ctx(STAGES), kind="search")) is None
     assert (mod.LAYER, mod.UNIT, mod.BETTER, mod.SOURCE, mod.MOVES) == (
-        layer, "ms", "lower", "program_span", "index_images_per_s")
+        layer, "ms", "lower", "program_span", "index_card_images_per_s")
     bench = json.loads((ROOT.parent / "BENCHMARK.json").read_text())
     (entry,) = [m for m in bench["per_layer"] if m["name"] == name]
     assert entry == {"name": name, "unit": "ms", "better": "lower", "source": "program_span",
-                     "layer": layer, "moves": "index_images_per_s", "workloads": [CELL]}
-    assert bench_run.per_layer(_ctx(STAGES), {"index_images_per_s", "setup_s"})[name] == {
+                     "layer": layer, "moves": "index_card_images_per_s", "workloads": [CELL]}
+    assert bench_run.per_layer(_ctx(STAGES), {"index_card_images_per_s", "setup_s"})[name] == {
         "value": pytest.approx(expect, rel=1e-12), "unit": "ms"}

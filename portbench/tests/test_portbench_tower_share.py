@@ -31,14 +31,14 @@ def test_reader(counters, expect):
     assert got == (None if expect is None else pytest.approx(expect, rel=1e-12))
     assert mod.read(_ctx(counters, kind="search")) is None
     assert (mod.LAYER, mod.UNIT, mod.BETTER, mod.SOURCE, mod.MOVES) == (
-        "model step", "%", "higher", "program_counter", "index_images_per_s")
+        "model step", "%", "higher", "program_counter", "index_card_images_per_s")
 
 
 def test_listed_for_the_index_cell():
     bench = json.loads((ROOT.parent / "BENCHMARK.json").read_text())
     (entry,) = [m for m in bench["per_layer"] if m["name"] == NAME]
     assert entry == {"name": NAME, "unit": "%", "better": "higher", "source": "program_counter",
-                     "layer": "model step", "moves": "index_images_per_s", "workloads": [CELL]}
+                     "layer": "model step", "moves": "index_card_images_per_s", "workloads": [CELL]}
     assert bench_run.per_layer(_ctx({"tower_fused_launches": 10.0}),
-                               {"index_images_per_s", "setup_s"})[NAME] == {
+                               {"index_card_images_per_s", "setup_s"})[NAME] == {
         "value": 100.0, "unit": "%"}

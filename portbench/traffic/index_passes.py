@@ -8,8 +8,14 @@ same bytes, and the folders cost no copies), and a warm-up folder of
 ``warm_photos`` links indexed twice.
 
 The window: passes started while less than ``seconds`` have passed since
-the first started; the rate is all images indexed over all the time from
-the first pass's start to the last one's end.
+the first started. The end-to-end rate, ``index_card_images_per_s``, is
+all images indexed over the seconds in which the card ran an operation
+(kernel, copy or memset) while they were indexed, from a trace of the
+card's activity alone that spans every pass (untraced runs on the card;
+``None`` otherwise). The rate on the host clock, all images over all the
+time from the first pass's start to the last one's end, is in ``ctx``
+for the per-layer metric ``host_images_per_s.index``: where the host's
+decode paces the passes it spreads with the host's load.
 
 The check, after the window, the peak read and the program freed:
 ``sample_per_pass`` images per pass (of each folder's last pass, when
@@ -70,8 +76,9 @@ def run(run: Run) -> dict:
     log(f"warm-up {time.monotonic() - t:.1f} s")
     if run.tamper is not None:
         run.tamper(engine)
-    if run.trace:
-        harness.warm_profiler()
+    card_trace = not run.trace and run.device.startswith("cuda")
+    if run.trace or card_trace:
+        harness.warm_profiler(host=run.trace)
     harness.settle()
 
     if run.device.startswith("cuda"):
@@ -80,6 +87,7 @@ def run(run: Run) -> dict:
     spec = {"kind": "index", "port": server.port, "t0": t0, "seconds": run.seconds,
             "folders": [str(f) for f in folders], "timeout_s": params["timeout_s"],
             "index_folder_name": run.config["engine"]["INDEX_FOLDER_NAME"]}
+    card_prof = harness.start_card_trace() if card_trace else None
     proc, out_path = harness.start_client(spec, run.tmp)
     wait = t0 - time.monotonic()
     if wait > 0:
@@ -91,6 +99,7 @@ def run(run: Run) -> dict:
                                           params["trace_s"])
     res = harness.finish_client(proc, out_path, run.seconds + params["timeout_s"] + 60)
     after = harness.snapshot(engine)
+    busy = harness.card_busy_s(run, card_prof) if card_prof is not None else None
     card = harness.card() if run.device.startswith("cuda") else {}
     traced = harness.reduce_subwindow(run, traced)
     server.stop()
@@ -109,13 +118,20 @@ def run(run: Run) -> dict:
                  if p["status"] != 200 or p["count"] != params["photos"])
     log(f"{len(passes)} passes, {images} images in {elapsed:.3f} s, "
         + ", ".join(f"{p['end'] - p['start']:.3f}" for p in passes))
+    card_rate = None
+    if busy is not None:
+        if busy <= 0:
+            raise RuntimeError("the card's trace over the window holds no device work")
+        card_rate = images / busy
+        log(f"card busy {busy:.4f} s: {card_rate:.2f} images/s; "
+            f"host clock {images / elapsed:.2f} images/s")
     t = time.monotonic()
     compared, problems = check(run, passes, photos)
     log(f"check {time.monotonic() - t:.1f} s")
     for f in folders + [warm]:
         shutil.rmtree(f, ignore_errors=True)
     return {
-        "e2e": {"index_images_per_s": images / elapsed},
+        "e2e": {"index_card_images_per_s": card_rate},
         "t0": t0,
         "attempted": len(passes) * params["photos"],
         "failed": failed,

@@ -25,6 +25,15 @@ kernels HWIO ``(kh, kw, in, out)``; BN ``scale``/``bias``/``mean``/
 where the JAX package stacks ``rest`` on a leading axis. Images arrive
 channels-last (B, H, W, 3) and are permuted once to an NCHW view, which
 keeps them channels-last in memory.
+
+Counts and spans: while a thread is inside ``ops.tower.counting`` (the
+engine wraps each tower call in it), each elementwise pass on a CUDA
+tensor that ``BatchNorm``, the ReLUs, the residual add and ``_avg_pool``
+launch adds 1 to ``rn_epilogue_passes`` and the bytes it reads and writes
+(every operand and the output, from their element counts and dtypes) to
+``rn_epilogue_bytes``; nothing synchronises. While a profiler records,
+the stem, each stage and the attention pool are ``record_function`` spans
+``rn_stem``, ``rn_stage1`` ... ``rn_stage4``, ``rn_attnpool``.
 """
 
 from __future__ import annotations
@@ -37,8 +46,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.constants import CLIPResNetSpec
+from ..ops import tower
+from ..utils import profiling
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, used by the OpenAI release
+EPILOGUE_PASSES = "rn_epilogue_passes"
+EPILOGUE_BYTES = "rn_epilogue_bytes"
 
 _TF32_LOCK = threading.Lock()
 _TF32_STATE = {"depth": 0, "saved": True}
@@ -93,8 +106,31 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.scale.float() * torch.rsqrt(self.var.float() + BN_EPS)
         bias = self.bias.float() - self.mean.float() * scale
-        y = x.float() * scale[:, None, None] + bias[:, None, None]
-        return y.to(x.dtype)
+        scale, bias = scale[:, None, None], bias[:, None, None]
+        xf = _cast(x, torch.float32)
+        y = _epilogue(xf * scale, xf, scale)
+        del xf  # freed before the add, as the one-expression form frees it: same peak memory
+        y = _epilogue(y + bias, y, bias)
+        return _cast(y, x.dtype)
+
+
+def _epilogue(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """Counts one pass of a conv epilogue that read ``inputs`` and wrote
+    ``out`` (see the module's docstring); returns ``out``."""
+    if tower._on_card(out):
+        tower._count(EPILOGUE_PASSES)
+        tower._count(EPILOGUE_BYTES, sum(t.numel() * t.element_size() for t in (out, *inputs)))
+    return out
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.to(dtype)``, counted where it is a pass (the dtype differs)."""
+    out = x.to(dtype)
+    return out if out is x else _epilogue(out, x)
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    return _epilogue(torch.relu(x), x)
 
 
 def _avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -102,7 +138,15 @@ def _avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
     summed in f32."""
     if stride == 1:
         return x
-    return F.avg_pool2d(x.float(), stride).to(x.dtype)
+    xf = _cast(x, torch.float32)
+    y = _epilogue(F.avg_pool2d(xf, stride), xf)
+    del xf
+    return _cast(y, x.dtype)
+
+
+def _span(name: str):
+    """A ``record_function`` span while a profiler records, else nothing."""
+    return profiling.annotate(name) if profiling.recording() else contextlib.nullcontext()
 
 
 class Downsample(nn.Module):
@@ -127,13 +171,13 @@ class Bottleneck(nn.Module):
         self.downsample = Downsample(cin, planes * 4) if downsample else None
 
     def forward(self, x: torch.Tensor, stride: int) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
+        out = _relu(self.bn1(self.conv1(x)))
+        out = _relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(_avg_pool(out, stride)))
         if self.downsample is not None:
             ds = self.downsample
             x = ds.bn(ds.conv(_avg_pool(x, stride)))
-        return torch.relu(out + x)
+        return _relu(_epilogue(out + x, out, x))
 
 
 class Stage(nn.Module):
@@ -167,9 +211,9 @@ class Stem(nn.Module):
         self.bn3 = BatchNorm(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
-        x = torch.relu(self.bn3(self.conv3(x)))
+        x = _relu(self.bn1(self.conv1(x)))
+        x = _relu(self.bn2(self.conv2(x)))
+        x = _relu(self.bn3(self.conv3(x)))
         return _avg_pool(x, 2)
 
 
@@ -222,10 +266,13 @@ class ModifiedResNet(nn.Module):
     def forward(self, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         scope = full_f32_convs() if dtype == torch.float32 else contextlib.nullcontext()
         with scope:
-            x = self.stem(images.to(dtype).permute(0, 3, 1, 2))
+            with _span("rn_stem"):
+                x = self.stem(images.to(dtype).permute(0, 3, 1, 2))
             for i in range(4):
-                x = getattr(self, f"stage{i + 1}")(x)
-        return self.attnpool(x)
+                with _span(f"rn_stage{i + 1}"):
+                    x = getattr(self, f"stage{i + 1}")(x)
+        with _span("rn_attnpool"):
+            return self.attnpool(x)
 
 
 @torch.no_grad()

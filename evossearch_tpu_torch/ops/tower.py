@@ -29,7 +29,8 @@ allocated here.
 Counts: while a thread is inside ``counting(counters)`` (the engine wraps
 each tower call in it), each launch adds 1 to ``tower_fused_launches`` of
 those ``utils.logging.Counters``, and each call on a CUDA tensor that took
-the plain version adds 1 to ``tower_plain_cuda_calls``.
+the plain version adds 1 to ``tower_plain_cuda_calls``. The modified
+ResNet's conv epilogues count into the same sink (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -62,10 +63,10 @@ def counting(counters):
         _sink.counters = prev
 
 
-def _count(name: str) -> None:
+def _count(name: str, value: float = 1.0) -> None:
     counters = getattr(_sink, "counters", None)
     if counters is not None:
-        counters.add(name)
+        counters.add(name, value)
 
 
 def _on_card(x: torch.Tensor) -> bool:

@@ -7,7 +7,9 @@ evossearch_tpu_torch/ops/csrc with nvcc (one nvcc per source, in
 parallel; phase ``tower_fused`` then holds the four fused kernels against
 their plain versions at ViT-L/14's batch-512 shapes and at the ViT-B/32
 app's image and text shapes, times them, and the L/14 towers fused
-against plain) and, beside them, the package's host
+against plain; phase ``rn_epilogue`` does the same for the modified
+ResNet's five conv-epilogue kernels at RN50x64's batch-128 shapes and its
+tower) and, beside them, the package's host
 extension with g++ (phase ``native``: the threaded host scanner, and the
 libjpeg decoders, by the system's libjpeg or the one Pillow bundles,
 which must decode a JPEG there), holds each
@@ -985,7 +987,9 @@ def tower_times(engine) -> dict:
             "image_tower_images_per_s": batch / image_ms * 1e3,
             "text_tower_ms_batch1": text_ms,
             "tower_fused_launches": int(counts.get(tower.FUSED, 0)),
-            "tower_plain_cuda_calls": int(counts.get(tower.PLAIN_CUDA, 0))}
+            "tower_plain_cuda_calls": int(counts.get(tower.PLAIN_CUDA, 0)),
+            "rn_epilogue_fused_launches": int(counts.get("rn_epilogue_fused_launches", 0)),
+            "rn_epilogue_plain_cuda_calls": int(counts.get("rn_epilogue_plain_cuda_calls", 0))}
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1126,6 +1130,134 @@ def tower_fused_phase(batch: int = 512) -> dict:
             "text_tower_ms_batch1": text_ms, "plain_text_tower_ms_batch1": plain_text_ms,
             "cos_gap_image": gap_img, "cos_gap_text": gap_txt, "towers_bit_equal": bit_equal,
             "tower_fused_launches": launches}
+
+
+# The chains of RN50x64 at 448 px: (entry, channels, size in, launches a
+# forward); a pool's output is half the size (ops/rn_epilogue.py).
+RN_EPILOGUE_CHAINS = (
+    ("bn_relu", 64, 224, 2), ("bn_relu", 128, 112, 6), ("bn_relu", 256, 112, 1),
+    ("bn_relu", 256, 56, 28), ("bn_relu", 512, 56, 1), ("bn_relu", 512, 28, 70),
+    ("bn_relu", 1024, 28, 1), ("bn_relu", 1024, 14, 18),
+    ("bn_relu_pool", 128, 224, 1), ("bn_relu_pool", 256, 112, 1),
+    ("bn_relu_pool", 512, 56, 1), ("bn_relu_pool", 1024, 28, 1),
+    ("avg_pool", 512, 112, 1), ("avg_pool", 1024, 56, 1), ("avg_pool", 2048, 28, 1),
+    ("bn_bn_add_relu", 512, 112, 1), ("bn_bn_add_relu", 1024, 56, 1),
+    ("bn_bn_add_relu", 2048, 28, 1), ("bn_bn_add_relu", 4096, 14, 1),
+    ("bn_add_relu", 512, 112, 2), ("bn_add_relu", 1024, 56, 14),
+    ("bn_add_relu", 2048, 28, 35), ("bn_add_relu", 4096, 14, 9),
+)
+
+
+def rn_epilogue_phase(batch: int = 128) -> dict:
+    """Phase ``rn_epilogue``: the five fused kernels of
+    ``ops/rn_epilogue.py`` at every shape RN50x64's 448 px forward gives
+    them at ``batch`` images, each bit-checked against its plain chain and
+    timed alone (CUDA-event median of 20) beside its byte bound (what the
+    kernel reads and writes, ``rn_epilogue_bytes`` of the launch, at 3.35
+    TB/s) and its plain chain's time; their sum over a forward, each shape
+    times its launches; then the RN50x64 tower at that batch fused against
+    plain (CUDA events, the embeddings bit for bit, the launches)."""
+    from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
+    from evossearch_tpu_torch.models import resnet
+    from evossearch_tpu_torch.ops import rn_epilogue, tower
+    from evossearch_tpu_torch.utils import Counters
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    bf = torch.bfloat16
+
+    def act(c, h):
+        return (torch.randn(batch, h, h, c, generator=gen, device="cuda") * 2).to(bf).permute(
+            0, 3, 1, 2)
+
+    def aff(c):
+        return (1 + 0.5 * torch.randn(c, generator=gen, device="cuda"),
+                0.5 * torch.randn(c, generator=gen, device="cuda"))
+
+    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for name, c, h, per_forward in RN_EPILOGUE_CHAINS:
+        x, (s, b) = act(c, h), aff(c)
+        if name == "bn_relu":
+            args, fused, plain = (x, s, b), rn_epilogue.bn_relu, rn_epilogue.bn_relu_plain
+        elif name == "bn_relu_pool":
+            args, fused, plain = (x, s, b, 2), rn_epilogue.bn_relu, rn_epilogue.bn_relu_plain
+        elif name == "avg_pool":
+            args, fused, plain = (x, 2), rn_epilogue.avg_pool, rn_epilogue.avg_pool_plain
+        elif name == "bn_add_relu":
+            args = (x, s, b, act(c, h))
+            fused, plain = rn_epilogue.bn_add_relu, rn_epilogue.bn_add_relu_plain
+        else:
+            args = (x, s, b, act(c, h), *aff(c))
+            fused, plain = rn_epilogue.bn_bn_add_relu, rn_epilogue.bn_bn_add_relu_plain
+        with torch.no_grad(), tower.counting(Counters()) as counts:
+            got = fused(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        snap = counts.snapshot()
+        check(snap.get(rn_epilogue.FUSED) == 1
+              and torch.equal(got.contiguous().view(torch.int16),
+                              want.contiguous().view(torch.int16)),
+              f"rn_epilogue {name} at C = {c}, H = {h} launched once and equals its plain chain")
+        del got, want
+        with torch.no_grad():
+            ms, plain_ms = time_ms(lambda: fused(*args)), time_ms(lambda: plain(*args))
+        nbytes = int(snap[rn_epilogue.BYTES])
+        bound = nbytes / 3.35e12 * 1e3
+        rows.append({"kernel": name, "channels": c, "size": h, "batch": batch,
+                     "per_forward": per_forward, "bytes": nbytes, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "ratio": ms / bound,
+                     "gbytes_per_s": nbytes / ms / 1e6})
+        if name == "avg_pool":  # torch's own bf16 pool, which sums in float32 too
+            rows[-1]["library_ms"] = time_ms(lambda: torch.nn.functional.avg_pool2d(x, 2))
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                           ("bytes", nbytes)):
+            total[key] += per_forward * value
+        del args, x
+    check(sum(r["per_forward"] for r in rows) == 198, "the table covers RN50x64's 198 chains")
+
+    spec = CLIP_MODEL_SPECS["RN50x64"]
+    model = resnet.ModifiedResNet(spec)
+    resnet.init_visual_resnet(model, torch.Generator().manual_seed(SEED + 51))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(SEED + 52)
+        for mod in model.modules():
+            if isinstance(mod, resnet.BatchNorm):
+                n = mod.scale.shape[0]
+                mod.scale.copy_(0.5 + 0.5 * torch.rand(n, generator=g))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+                mod.mean.copy_(0.1 * torch.randn(n, generator=g))
+                mod.var.copy_(torch.rand(n, generator=g) + 0.5)
+    model = model.cuda().eval()
+    images = torch.randn(batch, spec.image_size, spec.image_size, 3, generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        with tower.counting(Counters()) as counts:
+            fused_emb = model(images, bf)
+        fused_peak = torch.cuda.max_memory_allocated()
+        fused_ms = time_ms(lambda: model(images, bf), reps=5, warmup=1)
+        use_kernel = rn_epilogue.use_kernel
+        rn_epilogue.use_kernel = lambda *a: False
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            plain_emb = model(images, bf)
+            plain_peak = torch.cuda.max_memory_allocated()
+            plain_ms = time_ms(lambda: model(images, bf), reps=5, warmup=1)
+        finally:
+            rn_epilogue.use_kernel = use_kernel
+    counts = counts.snapshot()
+    check(counts.get(rn_epilogue.FUSED) == 198 and rn_epilogue.PLAIN_CUDA not in counts,
+          f"the RN50x64 tower launched 198 fused chains and took the plain ops in none ({counts})")
+    check(torch.equal(fused_emb, plain_emb), "the fused RN50x64 tower equals the plain one")
+    del model, images, fused_emb, plain_emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "rn_epilogue", "model": spec.name, "batch": batch, "kernels": rows,
+            "per_forward": total, "tower_ms": fused_ms, "plain_tower_ms": plain_ms,
+            "tower_images_per_s": batch / fused_ms * 1e3,
+            "plain_tower_images_per_s": batch / plain_ms * 1e3,
+            "tower_peak_bytes": fused_peak, "plain_tower_peak_bytes": plain_peak,
+            "fused_launches": int(counts[rn_epilogue.FUSED]),
+            "epilogue_bytes_per_forward": int(counts[rn_epilogue.BYTES])}
 
 
 def library_path(topk, engine, folder: Path) -> dict:
@@ -1540,8 +1672,9 @@ def index_run(client, engine, imgs: Path, mode: str) -> dict:
     encode (upload, device preprocess, image tower and the copy back),
     host clock, from the engine's stage timers, with the decode routes
     and the image tower's fused and plain chains counted; fails unless
-    every chain on the card launched its fused kernel (a ViT tower) or
-    none ran (a ResNet tower, which has none of these chains)."""
+    every chain on the card launched its fused kernel: the ViT chains of
+    ``ops/tower.py`` for a ViT tower, the conv epilogues of
+    ``ops/rn_epilogue.py`` for a ResNet tower (and none of the other's)."""
     stages = ("index_decode", "index_prepare", "prep_encode", "prep_encode_fetch")
     before_t = dict(engine.timers.totals)
     before_c = engine.counters.snapshot()
@@ -1555,7 +1688,9 @@ def index_run(client, engine, imgs: Path, mode: str) -> dict:
               if k.startswith("decode_") and v - before_c.get(k, 0)}
     towers = tower_counts(engine, before_c)
     vit = engine.spec.family == "vit"
-    check((towers["fused"] > 0) == vit and towers["plain"] == 0,
+    check(towers["fused" if vit else "rn_fused"] > 0
+          and towers["plain"] == towers["rn_plain"] == 0
+          and towers["rn_fused" if vit else "fused"] == 0,
           f"/index ({mode}, {engine.spec.name}) ran every tower chain as its fused kernel "
           f"({towers})")
     return {"index_s": wall, "index_images_per_s": 64 / wall,
@@ -1565,13 +1700,16 @@ def index_run(client, engine, imgs: Path, mode: str) -> dict:
 
 
 def tower_counts(engine, before: dict) -> dict:
-    """The engine's ``tower_fused_launches`` and ``tower_plain_cuda_calls``
+    """The engine's ``tower_fused_launches``, ``tower_plain_cuda_calls``,
+    ``rn_epilogue_fused_launches`` and ``rn_epilogue_plain_cuda_calls``
     since the counter snapshot ``before``."""
-    from evossearch_tpu_torch.ops import tower
+    from evossearch_tpu_torch.ops import rn_epilogue, tower
 
     now = engine.counters.snapshot()
     return {key: int(now.get(name, 0) - before.get(name, 0))
-            for key, name in (("fused", tower.FUSED), ("plain", tower.PLAIN_CUDA))}
+            for key, name in (("fused", tower.FUSED), ("plain", tower.PLAIN_CUDA),
+                              ("rn_fused", rn_epilogue.FUSED),
+                              ("rn_plain", rn_epilogue.PLAIN_CUDA))}
 
 
 def stored_by_path(imgs: Path) -> dict:
@@ -3294,7 +3432,10 @@ def main() -> int:
     check(all(spill == 0 for _, spill in stream_regs.values()),
           "no kernel of the stream library spills registers")
     check(spills.get("tower_fused", 0) == 0, "no kernel of the tower library spills registers")
+    check(spills.get("rn_epilogue", 0) == 0,
+          "no kernel of the ResNet epilogue library spills registers")
     emit(tower_fused_phase())
+    emit(rn_epilogue_phase())
 
     rows = kernel_checks(topk, search)
     rows[("sq8", "int8", 48)] = sq8_checks(topk)

@@ -26,14 +26,22 @@ where the JAX package stacks ``rest`` on a leading axis. Images arrive
 channels-last (B, H, W, 3) and are permuted once to an NCHW view, which
 keeps them channels-last in memory.
 
+Conv epilogues: the chain of BatchNorm, ReLU, residual add and average
+pool between two convs is one call of ``ops/rn_epilogue.py``: one fused
+kernel launch for bf16 activations on the card when autograd records
+nothing (the engine's encodes), else the plain torch ops above (the CPU,
+float32, training). Both give the same bits. The plain route keeps the
+ops' order and their float32 temporaries' lifetimes.
+
 Counts and spans: while a thread is inside ``ops.tower.counting`` (the
-engine wraps each tower call in it), each elementwise pass on a CUDA
-tensor that ``BatchNorm``, the ReLUs, the residual add and ``_avg_pool``
-launch adds 1 to ``rn_epilogue_passes`` and the bytes it reads and writes
-(every operand and the output, from their element counts and dtypes) to
-``rn_epilogue_bytes``; nothing synchronises. While a profiler records,
-the stem, each stage and the attention pool are ``record_function`` spans
-``rn_stem``, ``rn_stage1`` ... ``rn_stage4``, ``rn_attnpool``.
+engine wraps each tower call in it), each plain epilogue pass and each
+fused launch on a CUDA tensor adds 1 to ``rn_epilogue_passes`` and the
+bytes it reads and writes to ``rn_epilogue_bytes``; launches add to
+``rn_epilogue_fused_launches``, chains on the card that took the plain
+ops to ``rn_epilogue_plain_cuda_calls`` (``ops/rn_epilogue.py``); nothing
+synchronises. While a profiler records, the stem, each stage and the
+attention pool are ``record_function`` spans ``rn_stem``, ``rn_stage1``
+... ``rn_stage4``, ``rn_attnpool``.
 """
 
 from __future__ import annotations
@@ -46,12 +54,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.constants import CLIPResNetSpec
-from ..ops import tower
+from ..ops import rn_epilogue
 from ..utils import profiling
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, used by the OpenAI release
-EPILOGUE_PASSES = "rn_epilogue_passes"
-EPILOGUE_BYTES = "rn_epilogue_bytes"
 
 _TF32_LOCK = threading.Lock()
 _TF32_STATE = {"depth": 0, "saved": True}
@@ -103,45 +109,27 @@ class BatchNorm(nn.Module):
         self.mean = nn.Parameter(torch.zeros(c))
         self.var = nn.Parameter(torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The per-channel float32 (scale, shift) of the affine."""
         scale = self.scale.float() * torch.rsqrt(self.var.float() + BN_EPS)
-        bias = self.bias.float() - self.mean.float() * scale
-        scale, bias = scale[:, None, None], bias[:, None, None]
-        xf = _cast(x, torch.float32)
-        y = _epilogue(xf * scale, xf, scale)
-        del xf  # freed before the add, as the one-expression form frees it: same peak memory
-        y = _epilogue(y + bias, y, bias)
-        return _cast(y, x.dtype)
+        return scale, self.bias.float() - self.mean.float() * scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rn_epilogue.batch_norm_plain(x, *self.affine())
 
 
-def _epilogue(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
-    """Counts one pass of a conv epilogue that read ``inputs`` and wrote
-    ``out`` (see the module's docstring); returns ``out``."""
-    if tower._on_card(out):
-        tower._count(EPILOGUE_PASSES)
-        tower._count(EPILOGUE_BYTES, sum(t.numel() * t.element_size() for t in (out, *inputs)))
-    return out
+def _bn_relu(bn: BatchNorm, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``relu(bn(x))``, average-pooled by ``stride``: one epilogue chain."""
+    if rn_epilogue.use_kernel(x, *bn.parameters()):
+        return rn_epilogue.bn_relu(x, *bn.affine(), stride)
+    return rn_epilogue.avg_pool_plain(rn_epilogue.relu_plain(bn(x)), stride)
 
 
-def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``x.to(dtype)``, counted where it is a pass (the dtype differs)."""
-    out = x.to(dtype)
-    return out if out is x else _epilogue(out, x)
-
-
-def _relu(x: torch.Tensor) -> torch.Tensor:
-    return _epilogue(torch.relu(x), x)
-
-
-def _avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """AvgPool2d(stride): kernel == stride, no padding, floor semantics;
-    summed in f32."""
-    if stride == 1:
-        return x
-    xf = _cast(x, torch.float32)
-    y = _epilogue(F.avg_pool2d(xf, stride), xf)
-    del xf
-    return _cast(y, x.dtype)
+def _shortcut_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """A down block's shortcut pool: one epilogue chain where it pools."""
+    if stride != 1 and rn_epilogue.use_kernel(x):
+        return rn_epilogue.avg_pool(x, stride)
+    return rn_epilogue.avg_pool_plain(x, stride)
 
 
 def _span(name: str):
@@ -171,13 +159,20 @@ class Bottleneck(nn.Module):
         self.downsample = Downsample(cin, planes * 4) if downsample else None
 
     def forward(self, x: torch.Tensor, stride: int) -> torch.Tensor:
-        out = _relu(self.bn1(self.conv1(x)))
-        out = _relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(_avg_pool(out, stride)))
-        if self.downsample is not None:
-            ds = self.downsample
-            x = ds.bn(ds.conv(_avg_pool(x, stride)))
-        return _relu(_epilogue(out + x, out, x))
+        out = _bn_relu(self.bn1, self.conv1(x))
+        out = self.conv3(_bn_relu(self.bn2, self.conv2(out), stride))
+        ds = self.downsample
+        if ds is None:
+            if rn_epilogue.use_kernel(out, x, *self.bn3.parameters()):
+                return rn_epilogue.bn_add_relu(out, *self.bn3.affine(), x)
+            out = self.bn3(out)
+        elif rn_epilogue.use_kernel(out, x, *self.bn3.parameters(), *ds.bn.parameters()):
+            y = ds.conv(_shortcut_pool(x, stride))
+            return rn_epilogue.bn_bn_add_relu(out, *self.bn3.affine(), y, *ds.bn.affine())
+        else:
+            out = self.bn3(out)
+            x = ds.bn(ds.conv(_shortcut_pool(x, stride)))
+        return rn_epilogue.relu_plain(rn_epilogue.add_plain(out, x))
 
 
 class Stage(nn.Module):
@@ -211,10 +206,9 @@ class Stem(nn.Module):
         self.bn3 = BatchNorm(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _relu(self.bn1(self.conv1(x)))
-        x = _relu(self.bn2(self.conv2(x)))
-        x = _relu(self.bn3(self.conv3(x)))
-        return _avg_pool(x, 2)
+        x = _bn_relu(self.bn1, self.conv1(x))
+        x = _bn_relu(self.bn2, self.conv2(x))
+        return _bn_relu(self.bn3, self.conv3(x), 2)
 
 
 class AttentionPool(nn.Module):

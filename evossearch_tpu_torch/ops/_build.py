@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-KERNELS = ("topk_block", "topk_tree", "topk_sq8", "topk_stream", "tower_fused")
+KERNELS = ("topk_block", "topk_tree", "topk_sq8", "topk_stream", "tower_fused", "rn_epilogue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,12 @@ _SIGNATURES = {
     "bias_gelu_cast": ("tower_fused", "evs_bias_gelu_cast", [_P, _P, _P, _L, _I, _P]),
     "layer_norm": ("tower_fused", "evs_layer_norm", [_P, _P, _P, _P, _L, _I, _F, _F, _P]),
     "softmax_cast": ("tower_fused", "evs_softmax_cast", [_P, _P, _L, _I, _F, _I, _P]),
+    "rn_bn_relu": ("rn_epilogue", "evs_rn_bn_relu", [_P, _P, _P, _P, _L, _I, _P]),
+    "rn_bn_relu_pool": ("rn_epilogue", "evs_rn_bn_relu_pool", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "rn_bn_add_relu": ("rn_epilogue", "evs_rn_bn_add_relu", [_P, _P, _P, _P, _P, _L, _I, _P]),
+    "rn_bn_bn_add_relu": ("rn_epilogue", "evs_rn_bn_bn_add_relu",
+                          [_P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
+    "rn_avg_pool": ("rn_epilogue", "evs_rn_avg_pool", [_P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

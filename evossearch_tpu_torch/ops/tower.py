@@ -30,7 +30,8 @@ Counts: while a thread is inside ``counting(counters)`` (the engine wraps
 each tower call in it), each launch adds 1 to ``tower_fused_launches`` of
 those ``utils.logging.Counters``, and each call on a CUDA tensor that took
 the plain version adds 1 to ``tower_plain_cuda_calls``. The modified
-ResNet's conv epilogues count into the same sink (``models/resnet.py``).
+ResNet's conv epilogues count into the same sink under their own names
+(``ops/rn_epilogue.py``).
 """
 
 from __future__ import annotations
@@ -73,16 +74,17 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def _use_kernel(x: torch.Tensor, dtype: torch.dtype, *operands: torch.Tensor) -> bool:
+def _use_kernel(x: torch.Tensor, dtype: torch.dtype, *operands: torch.Tensor,
+                plain: str = PLAIN_CUDA) -> bool:
     """Whether a wrapper launches its kernel for input ``x`` at compute
     dtype ``dtype`` (see the module's docstring); counts a CUDA call that
-    takes the plain version."""
+    takes the plain version under ``plain``."""
     if not _on_card(x):
         return False
     recorded = torch.is_grad_enabled() and any(t.requires_grad for t in (x, *operands))
     if dtype == torch.bfloat16 and not recorded:
         return True
-    _count(PLAIN_CUDA)
+    _count(plain)
     return False
 
 
@@ -95,11 +97,12 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{what} must be 16-byte aligned")
 
 
-def _launch(name: str, device: torch.device, args: list) -> None:
-    """Launch entry point ``name`` of ``tower_fused`` on ``device``'s
-    current stream; tensors in ``args`` pass as their data pointers. The
-    text tower at batch 1 is paced by these launches, so the stream is
-    read raw and the device switched only when it differs."""
+def _launch(name: str, device: torch.device, args: list, counter: str = FUSED) -> None:
+    """Launch entry point ``name`` (``_build._SIGNATURES``) on ``device``'s
+    current stream and count it under ``counter``; tensors in ``args``
+    pass as their data pointers. The text tower at batch 1 is paced by
+    these launches, so the stream is read raw and the device switched
+    only when it differs."""
     from ._build import entry
 
     fn = entry(name)
@@ -114,7 +117,7 @@ def _launch(name: str, device: torch.device, args: list) -> None:
             rc = fn(*args, stream)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(FUSED)
+    _count(counter)
 
 
 # -- plain versions -----------------------------------------------------------

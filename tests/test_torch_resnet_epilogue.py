@@ -1,14 +1,20 @@
-"""The modified ResNet's conv epilogue counters and spans
-(``evossearch_tpu_torch/models/resnet.py``): ``rn_epilogue_passes`` and
-``rn_epilogue_bytes`` against a count worked from the shapes alone, at a
-tiny spec on the CPU and at RN50 and RN50x64 on the meta device (no
-memory, no arithmetic); nothing counted on CPU tensors or outside
-``ops.tower.counting``; the tower's output bit-equal with counting on and
-off; the stem, stage and attention-pool spans only while a profiler
-records; and the engine's image encodes counting into its ``Counters``.
+"""The modified ResNet's conv epilogues (``evossearch_tpu_torch/models/
+resnet.py``, ``ops/rn_epilogue.py``) on the CPU: ``rn_epilogue_passes``
+and ``rn_epilogue_bytes`` against counts worked from the shapes alone, on
+the plain route (float32, and bf16 under autograd) and on the fused
+kernels' route (bf16 with nothing recorded), at a tiny spec on the CPU and
+at RN50 and RN50x64 on the meta device (no memory, no arithmetic); the
+dispatch between the routes and its counters; the wrappers' refusals;
+nothing counted on CPU tensors or outside ``ops.tower.counting``; the
+tower's output bit-equal with counting on and off and on either route;
+the stem, stage and attention-pool spans only while a profiler records;
+and the engine's image encodes counting into its ``Counters``.
 
 A simulated card (``tower._on_card`` patched to True) stands in for a
-CUDA device, as in ``tests/test_torch_tower.py``."""
+CUDA device, as in ``tests/test_torch_tower.py``; on it the kernels'
+launches run a stand-in that computes each entry point's plain chain from
+the arguments the wrappers pass. The kernels themselves run on the card:
+``tests/test_torch_rn_epilogue_fused.py``."""
 
 import dataclasses
 import weakref
@@ -23,11 +29,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
 from evossearch_tpu_torch.core.constants import CLIPResNetSpec
 from evossearch_tpu_torch.models import resnet
-from evossearch_tpu_torch.ops import tower
+from evossearch_tpu_torch.ops import _build, rn_epilogue, tower
 from evossearch_tpu_torch.utils import profiling
 from evossearch_tpu_torch.utils.logging import Counters
 
-PASSES, BYTES = resnet.EPILOGUE_PASSES, resnet.EPILOGUE_BYTES
+PASSES, BYTES = rn_epilogue.PASSES, rn_epilogue.BYTES
+FUSED, PLAIN = rn_epilogue.FUSED, rn_epilogue.PLAIN_CUDA
 
 # multi-block and single-block stages, 64 px -> a 2x2 final grid
 TINY_RN = CLIPResNetSpec(
@@ -110,6 +117,79 @@ def expected_epilogue(spec: CLIPResNetSpec, batch: int, dtype: torch.dtype) -> t
     return passes, nbytes
 
 
+def expected_fused(spec: CLIPResNetSpec, batch: int) -> tuple[int, int]:
+    """(launches, bytes) of the tower's epilogues on the fused kernels'
+    route (bf16), from the shapes alone: one launch a chain, each reading
+    its bf16 inputs and writing its bf16 output once, plus 8 bytes a
+    channel of each BatchNorm's scale and shift. Over n values: BatchNorm
+    + ReLU 4n; the residual chains 6n (a tail block's input, or a down
+    block's shortcut conv output); a pool of stride 2 to m = n / 4 values
+    (floor) reads the m 2x2 windows and writes m, 10m. So the stem's three
+    BatchNorms are 3 launches (the last pooled), a tail block 3 (bn1, bn2,
+    bn3 with the residual), a down block 3 where its stride is 1 and 4
+    where it is 2 (bn2 pooled, and the shortcut's pool)."""
+    launches = nbytes = 0
+
+    def launch(b):
+        nonlocal launches, nbytes
+        launches, nbytes = launches + 1, nbytes + b
+
+    w = spec.vision_width
+    h = (spec.image_size - 1) // 2 + 1  # the stem's stride-2 3x3 conv, padding 1
+    for c in (w // 2, w // 2):
+        launch(4 * batch * c * h * h + 8 * c)
+    h //= 2
+    launch(10 * batch * w * h * h + 8 * w)
+    cin = w
+    for i, blocks in enumerate(spec.vision_layers):
+        planes, stride = w * 2 ** i, 1 if i == 0 else 2
+        for b in range(blocks):
+            launch(4 * batch * planes * h * h + 8 * planes)  # bn1
+            if b == 0 and stride == 2:
+                ho = h // 2
+                launch(10 * batch * planes * ho * ho + 8 * planes)  # bn2, pooled
+                launch(10 * batch * cin * ho * ho)  # the shortcut's pool
+                h = ho
+            else:
+                launch(4 * batch * planes * h * h + 8 * planes)  # bn2
+            bns = 2 if b == 0 else 1  # a down block's shortcut BatchNorm
+            launch(6 * batch * 4 * planes * h * h + 8 * bns * 4 * planes)
+        cin = 4 * planes
+    return launches, nbytes
+
+
+def _stand_in(name, device, args, counter=tower.FUSED):
+    """A kernel launch on the simulated card: the entry point's plain chain
+    computed from the arguments the wrapper passes, written into its
+    output, counted as ``tower._launch`` counts."""
+    assert len(args) + 1 == len(_build._SIGNATURES[name][2])  # and the stream
+    with tower.counting(None):
+        if name == "rn_bn_relu":
+            x, s, b, out, pixels, c = args
+            want = rn_epilogue.bn_relu_plain(x, s, b)
+        elif name == "rn_bn_relu_pool":
+            x, s, b, out, n, h, w, c = args
+            assert (n, c, h, w) == tuple(x.shape)
+            want = rn_epilogue.bn_relu_plain(x, s, b, 2)
+        elif name == "rn_bn_add_relu":
+            x, s, b, r, out, pixels, c = args
+            want = rn_epilogue.bn_add_relu_plain(x, s, b, r)
+        elif name == "rn_bn_bn_add_relu":
+            x, s, b, y, s2, b2, out, pixels, c = args
+            want = rn_epilogue.bn_bn_add_relu_plain(x, s, b, y, s2, b2)
+        else:
+            assert name == "rn_avg_pool"
+            x, out, n, h, w, c = args
+            assert (n, c, h, w) == tuple(x.shape)
+            want = rn_epilogue.avg_pool_plain(x, 2)
+        if name in ("rn_bn_relu", "rn_bn_add_relu", "rn_bn_bn_add_relu"):
+            assert pixels * c == x.numel() and c == x.shape[1]
+        assert out.dtype == x.dtype == torch.bfloat16 and out.shape == want.shape
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        out.copy_(want)
+    tower._count(counter)
+
+
 def _tower(spec, seed=0):
     """The tower with every parameter drawn from ``seed`` (BatchNorm
     statistics too, variances positive)."""
@@ -131,36 +211,97 @@ def _images(spec, n, seed=1, dtype=torch.float32):
 
 @pytest.fixture
 def card(monkeypatch):
-    """Every tensor counts as on the card."""
+    """Every tensor counts as on the card; launches run ``_stand_in``."""
     monkeypatch.setattr(tower, "_on_card", lambda x: True)
+    monkeypatch.setattr(tower, "_launch", _stand_in)
 
 
-def _count(model, images, dtype):
+def _count(model, images, dtype, grad=False):
+    """The tower's output and counters; with ``grad`` autograd records
+    (the parameters require grad), which takes the plain route."""
     counters = Counters()
-    with torch.no_grad(), tower.counting(counters):
+    with torch.set_grad_enabled(grad), tower.counting(counters):
         out = model(images, dtype)
-    return out, counters.snapshot()
+    return out.detach(), counters.snapshot()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("spec, batch", [(TINY_RN, 3), (ODD_RN, 2)])
-def test_counts_equal_the_shapes(spec, batch, dtype, card):
-    _, got = _count(_tower(spec), _images(spec, batch), dtype)
+def _plain_counts(spec, batch, dtype):
+    """The counters of a forward on the card's plain route: every chain
+    counted as a plain call."""
     passes, nbytes = expected_epilogue(spec, batch, dtype)
-    assert got == {PASSES: passes, BYTES: nbytes}
+    return {PASSES: passes, BYTES: nbytes, PLAIN: expected_fused(spec, batch)[0]}
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def _fused_counts(spec, batch):
+    launches, nbytes = expected_fused(spec, batch)
+    return {PASSES: launches, BYTES: nbytes, FUSED: launches}
+
+
+# the plain route on the card: float32, and bf16 under autograd
+ROUTES = [(torch.bfloat16, True), (torch.float32, False)]
+
+
+@pytest.mark.parametrize("dtype, grad", ROUTES)
+@pytest.mark.parametrize("spec, batch", [(TINY_RN, 3), (ODD_RN, 2)])
+def test_counts_equal_the_shapes(spec, batch, dtype, grad, card):
+    _, got = _count(_tower(spec), _images(spec, batch), dtype, grad)
+    assert got == _plain_counts(spec, batch, dtype)
+
+
+@pytest.mark.parametrize("dtype, grad", ROUTES)
 @pytest.mark.parametrize("name, batch", [("RN50", 4), ("RN50x64", 2)])
-def test_counts_equal_the_shapes_at_published_widths(name, batch, dtype, card):
+def test_counts_equal_the_shapes_at_published_widths(name, batch, dtype, grad, card):
     """Full-size towers on the meta device: shapes only."""
     spec = CLIP_MODEL_SPECS[name]
     with torch.device("meta"):
         model = resnet.ModifiedResNet(spec)
     images = torch.empty(batch, spec.image_size, spec.image_size, 3, device="meta", dtype=dtype)
-    out, got = _count(model, images, dtype)
+    out, got = _count(model, images, dtype, grad)
     assert out.shape == (batch, spec.embed_dim)
-    assert got == dict(zip((PASSES, BYTES), expected_epilogue(spec, batch, dtype)))
+    assert got == _plain_counts(spec, batch, dtype)
+
+
+@pytest.mark.parametrize("spec, batch", [(TINY_RN, 3), (ODD_RN, 2)])
+def test_fused_counts_equal_the_shapes(spec, batch, card):
+    """bf16 with nothing recorded: one launch a chain, its bytes from the
+    shapes, no plain call; the output equals the plain route's bit for
+    bit (the stand-in computes each chain's plain ops)."""
+    model, images = _tower(spec), _images(spec, batch)
+    got_out, got = _count(model, images, torch.bfloat16)
+    assert got == _fused_counts(spec, batch)
+    want_out, _ = _count(model, images, torch.bfloat16, grad=True)
+    assert torch.equal(got_out, want_out)
+
+
+@pytest.mark.parametrize("name, batch", [("RN50", 4), ("RN50x64", 2)])
+def test_fused_counts_equal_the_shapes_at_published_widths(name, batch, card, monkeypatch):
+    """On the meta device, whose convs return NCHW strides where cuDNN and
+    the CPU return channels-last for channels-last operands, so the convs
+    are given the card's layout."""
+    conv2d = F.conv2d
+    monkeypatch.setattr(F, "conv2d", lambda *a, **k: conv2d(*a, **k).contiguous(
+        memory_format=torch.channels_last))
+    spec = CLIP_MODEL_SPECS[name]
+    with torch.device("meta"):
+        model = resnet.ModifiedResNet(spec)
+    images = torch.empty(batch, spec.image_size, spec.image_size, 3, device="meta",
+                         dtype=torch.bfloat16)
+    out, got = _count(model, images, torch.bfloat16)
+    assert out.shape == (batch, spec.embed_dim)
+    assert got == _fused_counts(spec, batch)
+
+
+def test_rn50x64_fused_epilogue_per_image_is_pinned():
+    """RN50x64 at 448 px on the kernels' route: 198 launches a forward (3
+    in the stem, 3 a tail block, 3 and 4 in the down blocks of stride 1
+    and 2), 1,162,915,840 bytes at batch 1, 7.3 times fewer than the
+    plain route's 8,507,076,608; each further image adds that less the
+    per-channel vectors."""
+    spec = CLIP_MODEL_SPECS["RN50x64"]
+    one, two = (expected_fused(spec, b) for b in (1, 2))
+    assert one[0] == two[0] == 198
+    assert one[1] == 1_162_915_840
+    assert two[1] - one[1] == 1_162_915_840 - 8 * _bn_channels(spec)
 
 
 def test_rn50x64_epilogue_per_image_is_pinned():
@@ -192,26 +333,120 @@ def test_nothing_counted_on_cpu_tensors(dtype):
 
 
 def test_nothing_counted_outside_counting(card):
+    """Neither route counts outside ``counting``: the plain one (bf16
+    under autograd) and the kernels' (bf16, nothing recorded)."""
     model, images = _tower(TINY_RN), _images(TINY_RN, 2)
     counters = Counters()
     with tower.counting(counters):
         pass
+    model(images, torch.bfloat16)
     with torch.no_grad():
         model(images, torch.bfloat16)
     assert counters.snapshot() == {}
-    _, got = _count(model, images, torch.bfloat16)
+    _, got = _count(model, images, torch.bfloat16, grad=True)
     assert got[PASSES] == expected_epilogue(TINY_RN, 2, torch.bfloat16)[0]
+    _, got = _count(model, images, torch.bfloat16)
+    assert got[PASSES] == expected_fused(TINY_RN, 2)[0]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_output_bit_equal_with_counting_on_and_off(dtype, monkeypatch):
+@pytest.mark.parametrize("dtype, grad", ROUTES)
+def test_output_bit_equal_with_counting_on_and_off(dtype, grad, monkeypatch):
+    """On the plain route (the kernels' needs the stand-in: see
+    ``test_fused_counts_equal_the_shapes``)."""
     model, images = _tower(TINY_RN), _images(TINY_RN, 3)
     with torch.no_grad():
         plain = model(images, dtype)
     monkeypatch.setattr(tower, "_on_card", lambda x: True)
-    counted, got = _count(model, images, dtype)
+    counted, got = _count(model, images, dtype, grad)
     assert got[PASSES] > 0
     assert torch.equal(counted, plain)
+
+
+def test_cpu_route_builds_nothing(monkeypatch):
+    """CPU tensors, any dtype, grad or not: the plain ops, no kernel built
+    or loaded, nothing counted."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("the CPU route must not build or load a kernel")
+
+    monkeypatch.setattr(_build, "entry", no_build)
+    model, images = _tower(ODD_RN), _images(ODD_RN, 2)
+    for dtype, grad in ROUTES + [(torch.bfloat16, False)]:
+        _, got = _count(model, images, dtype, grad)
+        assert got == {}
+
+
+def test_route_by_dtype_and_autograd(card):
+    """On the card each chain launches its kernel for bf16 when autograd
+    records nothing (grad mode off, or no operand requiring grad), and
+    takes the plain ops, counted as a plain call, for float32 or under
+    autograd; the routes give the same bits in bf16."""
+    model, images = _tower(TINY_RN), _images(TINY_RN, 2)
+    chains = expected_fused(TINY_RN, 2)[0]
+    out = {}
+    for key, dtype, grad, frozen in (("fused", torch.bfloat16, False, False),
+                                     ("fused_grad_mode", torch.bfloat16, True, True),
+                                     ("autograd", torch.bfloat16, True, False),
+                                     ("f32", torch.float32, False, False)):
+        model.requires_grad_(not frozen)
+        out[key], got = _count(model, images, dtype, grad)
+        assert got.get(FUSED, 0) + got.get(PLAIN, 0) == chains
+        assert got.get(FUSED, 0) == (chains if key.startswith("fused") else 0)
+        assert tower.FUSED not in got and tower.PLAIN_CUDA not in got
+    assert torch.equal(out["fused"], out["autograd"])
+    model.requires_grad_(False)  # which the CPU's float32 products notice
+    frozen, _ = _count(model, images, torch.bfloat16)
+    assert torch.equal(frozen, out["fused_grad_mode"])
+    assert out["f32"].dtype == torch.float32
+
+
+def _act(n=2, c=16, h=6, w=6, dtype=torch.bfloat16, seed=9):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=g).to(dtype)
+    return x.permute(0, 3, 1, 2)  # channels-last (N, C, H, W)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    x, r = _act(), _act(seed=10)
+    s, b = torch.ones(16), torch.zeros(16)
+    nchw = x.contiguous()  # NCHW-contiguous
+    base = torch.randn(2 * 6 * 6 * 16 + 1).to(torch.bfloat16)
+    unaligned = base[1:].view(2, 6, 6, 16).permute(0, 3, 1, 2)
+    narrow = _act(c=12)
+    calls = {
+        "bn_relu": lambda t, c=16: rn_epilogue.bn_relu(t, s[:c], b[:c]),
+        "bn_relu_pool": lambda t, c=16: rn_epilogue.bn_relu(t, s[:c], b[:c], 2),
+        "bn_add_relu": lambda t, c=16: rn_epilogue.bn_add_relu(t, s[:c], b[:c], t),
+        "bn_bn_add_relu": lambda t, c=16: rn_epilogue.bn_bn_add_relu(t, s[:c], b[:c], t,
+                                                                     s[:c], b[:c]),
+        "avg_pool": lambda t, c=16: rn_epilogue.avg_pool(t, 2),
+    }
+    with torch.no_grad():
+        for name, call in calls.items():
+            with pytest.raises(ValueError, match="channels-last"):
+                call(nchw)
+            with pytest.raises(ValueError, match="bfloat16"):
+                call(x.float())
+            with pytest.raises(ValueError, match="multiple of 8"):
+                call(narrow, 12)
+            with pytest.raises(ValueError, match="aligned"):
+                call(unaligned)
+            call(x)  # and takes what it should
+        with pytest.raises(ValueError, match="shape"):
+            rn_epilogue.bn_relu(x, s[:8], b[:8])
+        with pytest.raises(ValueError, match="float32"):
+            rn_epilogue.bn_relu(x, s.double(), b)
+        with pytest.raises(ValueError, match="residual"):
+            rn_epilogue.bn_add_relu(x, s, b, r[:, :, :4])
+        with pytest.raises(ValueError, match="channels-last"):
+            rn_epilogue.bn_add_relu(x, s, b, r.contiguous())
+        with pytest.raises(ValueError, match="shortcut"):
+            rn_epilogue.bn_bn_add_relu(x, s, b, r[:1], s, b)
+        for stride in (3, 4):
+            with pytest.raises(ValueError, match="2x2"):
+                rn_epilogue.bn_relu(x, s, b, stride)
+            with pytest.raises(ValueError, match="2x2"):
+                rn_epilogue.avg_pool(x, stride)
+        assert rn_epilogue.avg_pool(x, 1) is x
 
 
 def test_counting_launches_the_same_ops_in_the_same_order(monkeypatch):
@@ -284,7 +519,7 @@ def test_peak_memory_is_the_one_expression_forms(on_card, monkeypatch):
     bn = resnet.BatchNorm(16)
     x = torch.randn(4, 16, 12, 12).to(torch.bfloat16)
     for new, old in ((lambda: bn(x), lambda: _old_batch_norm(bn, x)),
-                     (lambda: resnet._avg_pool(x, 2),
+                     (lambda: rn_epilogue.avg_pool_plain(x, 2),
                       lambda: F.avg_pool2d(x.float(), 2).to(x.dtype))):
         peaks = []
         for fn in (new, old):
@@ -312,15 +547,17 @@ def test_spans_only_while_a_profiler_records(monkeypatch):
     assert set(SPANS) <= names
 
 
-def test_engine_counts_its_image_encodes(card):
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_engine_counts_its_image_encodes(compute, card):
     """The engine's image encodes count into its own ``Counters`` through
-    the tower call it already wraps: 3 images run as a bucket of 4."""
+    the tower call it already wraps: 3 images run as a bucket of 4; in
+    bf16 on the kernels' route, in float32 on the plain one."""
     from evossearch_tpu_torch.core import Config
     from evossearch_tpu_torch.engine import SearchEngine
     from evossearch_tpu_torch.models import CLIP
 
     cfg = Config(env_path=None)
-    cfg.COMPUTE_DTYPE = "bfloat16"
+    cfg.COMPUTE_DTYPE = compute
     module = CLIP(TINY_RN)
     module.visual = _tower(TINY_RN)
     engine = SearchEngine(cfg=cfg, spec=TINY_RN, params=module.eval(), device="cpu")
@@ -329,8 +566,11 @@ def test_engine_counts_its_image_encodes(card):
         emb = engine.encode_images([rng.integers(0, 256, (80, 96, 3), np.uint8)
                                     for _ in range(3)])
         assert emb.shape == (3, TINY_RN.embed_dim) and np.isfinite(emb).all()
-        got = engine.counters.snapshot()
-        assert (got[PASSES], got[BYTES]) == expected_epilogue(TINY_RN, 4, torch.bfloat16)
-        assert tower.FUSED not in got and tower.PLAIN_CUDA not in got
+        got = {k: v for k, v in engine.counters.snapshot().items() if k.startswith("rn_")}
+        want = (_fused_counts(TINY_RN, 4) if compute == "bfloat16"
+                else _plain_counts(TINY_RN, 4, torch.float32))
+        assert got == want
+        assert tower.FUSED not in engine.counters.snapshot()
+        assert tower.PLAIN_CUDA not in engine.counters.snapshot()
     finally:
         engine.close()

@@ -159,6 +159,7 @@ exits non-zero with no last line. Without a GPU it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -238,6 +239,20 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every fused-kernel family's chains on their plain ops while inside:
+    the seam's device test (``ops.fused.on_card``) answers no."""
+    from evossearch_tpu_torch.ops import fused
+
+    on_card = fused.on_card
+    fused.on_card = lambda x: False
+    try:
+        yield
+    finally:
+        fused.on_card = on_card
 
 
 def exact_inputs(n: int, dtype, gen: torch.Generator, d: int = D):
@@ -970,6 +985,7 @@ def tower_times(engine) -> dict:
     fused launches (``ops/tower.py``) and plain calls on the card."""
     from evossearch_tpu_torch.models import encode_image, encode_text
     from evossearch_tpu_torch.ops import tower
+    from evossearch_tpu_torch.ops.fused import counting
     from evossearch_tpu_torch.utils import Counters
 
     spec, dtype = engine.spec, engine._compute_dtype
@@ -979,7 +995,7 @@ def tower_times(engine) -> dict:
                          generator=gen, device="cuda").to(dtype)
     tokens = torch.randint(0, spec.vocab_size, (1, spec.context_length),
                            generator=gen, device="cuda")
-    with tower.counting(Counters()) as counts:
+    with counting(Counters()) as counts:
         image_ms = time_ms(lambda: encode_image(engine.params, images, dtype), reps=10)
         text_ms = time_ms(lambda: encode_text(engine.params, tokens, dtype), reps=10)
     counts = counts.snapshot()
@@ -1017,6 +1033,7 @@ def tower_fused_phase(batch: int = 512) -> dict:
     from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
     from evossearch_tpu_torch.models import CLIP, encode_image, encode_text
     from evossearch_tpu_torch.ops import tower
+    from evossearch_tpu_torch.ops.fused import counting
     from evossearch_tpu_torch.utils import Counters
 
     spec = CLIP_MODEL_SPECS["ViT-L/14"]
@@ -1093,21 +1110,17 @@ def tower_fused_phase(batch: int = 512) -> dict:
                          device="cuda")
     tokens = torch.randint(0, spec.vocab_size, (1, spec.context_length), generator=gen,
                            device="cuda")
-    with tower.counting(Counters()) as counts:
+    with counting(Counters()) as counts:
         fused_img = encode_image(model, images, bf)
         image_ms = time_ms(lambda: encode_image(model, images, bf), reps=10)
         fused_txt = encode_text(model, tokens, bf)
         text_ms = time_ms(lambda: encode_text(model, tokens, bf), reps=10)
     counts = counts.snapshot()
-    on_card = tower._on_card
-    tower._on_card = lambda x: False
-    try:
+    with plain_route():
         plain_img = encode_image(model, images, bf)
         plain_image_ms = time_ms(lambda: encode_image(model, images, bf), reps=10)
         plain_txt = encode_text(model, tokens, bf)
         plain_text_ms = time_ms(lambda: encode_text(model, tokens, bf), reps=10)
-    finally:
-        tower._on_card = on_card
     gap_img = float((1 - (fused_img.double() * plain_img.double()).sum(-1)).max())
     gap_txt = float((1 - (fused_txt.double() * plain_txt.double()).sum(-1)).max())
     bit_equal = torch.equal(fused_img, plain_img) and torch.equal(fused_txt, plain_txt)
@@ -1159,7 +1172,8 @@ def rn_epilogue_phase(batch: int = 128) -> dict:
     plain (CUDA events, the embeddings bit for bit, the launches)."""
     from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
     from evossearch_tpu_torch.models import resnet
-    from evossearch_tpu_torch.ops import rn_epilogue, tower
+    from evossearch_tpu_torch.ops import rn_epilogue
+    from evossearch_tpu_torch.ops.fused import counting
     from evossearch_tpu_torch.utils import Counters
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
@@ -1186,9 +1200,11 @@ def rn_epilogue_phase(batch: int = 128) -> dict:
             args = (x, s, b, act(c, h))
             fused, plain = rn_epilogue.bn_add_relu, rn_epilogue.bn_add_relu_plain
         else:
-            args = (x, s, b, act(c, h), *aff(c))
-            fused, plain = rn_epilogue.bn_bn_add_relu, rn_epilogue.bn_bn_add_relu_plain
-        with torch.no_grad(), tower.counting(Counters()) as counts:
+            args, plain = (x, s, b, act(c, h), *aff(c)), rn_epilogue.bn_bn_add_relu_plain
+
+            def fused(x, s, b, y, s2, b2):  # the chain takes its shortcut as a callable
+                return rn_epilogue.bn_bn_add_relu(x, s, b, lambda: (y, s2, b2))
+        with torch.no_grad(), counting(Counters()) as counts:
             got = fused(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -1231,19 +1247,15 @@ def rn_epilogue_phase(batch: int = 128) -> dict:
                          device="cuda")
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
-        with tower.counting(Counters()) as counts:
+        with counting(Counters()) as counts:
             fused_emb = model(images, bf)
         fused_peak = torch.cuda.max_memory_allocated()
         fused_ms = time_ms(lambda: model(images, bf), reps=5, warmup=1)
-        use_kernel = rn_epilogue.use_kernel
-        rn_epilogue.use_kernel = lambda *a: False
-        try:
+        with plain_route():
             torch.cuda.reset_peak_memory_stats()
             plain_emb = model(images, bf)
             plain_peak = torch.cuda.max_memory_allocated()
             plain_ms = time_ms(lambda: model(images, bf), reps=5, warmup=1)
-        finally:
-            rn_epilogue.use_kernel = use_kernel
     counts = counts.snapshot()
     check(counts.get(rn_epilogue.FUSED) == 198 and rn_epilogue.PLAIN_CUDA not in counts,
           f"the RN50x64 tower launched 198 fused chains and took the plain ops in none ({counts})")

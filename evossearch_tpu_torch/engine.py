@@ -45,7 +45,7 @@ from .core.constants import CLIPModelSpec
 from .core.device import resolve_device
 from .index import build_index
 from .index.store import IndexReader, as_float32
-from .ops import tower
+from .ops import fused
 from .tokenizer import load_tokenizer
 from .utils import Counters, StageTimer, get_logger
 
@@ -81,7 +81,8 @@ def _bucket(n: int, cap: int) -> int:
 class PendingEmbeddings:
     """Deferred result of ``encode_prepared(..., fetch=False)``: the encode
     is queued on the device; :meth:`resolve` copies the (n, embed_dim)
-    float32 embeddings to the host. Single-use."""
+    float32 embeddings to the host, or :meth:`on_device` hands them over
+    where they lie. Single-use."""
 
     def __init__(self, buckets: list, n: int, engine: "SearchEngine"):
         self._buckets = buckets
@@ -98,6 +99,17 @@ class PendingEmbeddings:
         emb = np.concatenate(out, axis=0)[: self._n]
         eng.counters.add("images_encoded", self._n)
         return emb
+
+    def on_device(self) -> torch.Tensor:
+        """The (n, embed_dim) float32 embeddings on the device, counted as
+        encoded as :meth:`resolve` counts them."""
+        eng = self._engine
+        if self._n == 0:
+            return torch.zeros((0, eng.spec.embed_dim), device=eng.device)
+        rows = self._buckets[0] if len(self._buckets) == 1 else torch.cat(self._buckets)
+        self._buckets = []
+        eng.counters.add("images_encoded", self._n)
+        return rows[: self._n]
 
 
 def _canon(folder: str) -> str:
@@ -197,16 +209,12 @@ class SearchEngine:
 
     # -- encoders --
 
-    # index.builder._pipelined_build probes this to overlap batch N's
-    # device->host copy with batch N+1's encode
-    supports_deferred_fetch = True
-
     def _encode_tokens(self, tokens) -> torch.Tensor:
         """(B, ctx) token ids -> (B, embed_dim) float32 device rows."""
         from .models import encode_text
 
         t = torch.as_tensor(np.asarray(tokens), device=self.device)
-        with tower.counting(self.counters):
+        with fused.counting(self.counters):
             return encode_text(self.params, t, self._compute_dtype)
 
     def _prep_encode(self, params, canvases, a_h_u, a_w_u,
@@ -219,7 +227,7 @@ class SearchEngine:
         x = device_preprocess_indexed(
             canvases, a_h_u, a_w_u, size_idx, out_dtype=self._compute_dtype
         )
-        with tower.counting(self.counters):
+        with fused.counting(self.counters):
             return encode_image(params, x, self._compute_dtype)
 
     def _prep_encode_planar(self, params, y, c, a_h_y, a_w_y, a_h_c, a_w_c,
@@ -234,7 +242,7 @@ class SearchEngine:
             y, c, a_h_y, a_w_y, a_h_c, a_w_c, size_idx,
             out_dtype=self._compute_dtype,
         )
-        with tower.counting(self.counters):
+        with fused.counting(self.counters):
             return encode_image(params, x, self._compute_dtype)
 
     @functools.cached_property
@@ -421,9 +429,7 @@ class SearchEngine:
             prepared = prepare_batch(
                 [self._as_rgb(img)], target=self.spec.image_size
             )
-        pend = self.encode_prepared(*prepared, fetch=False)
-        self.counters.add("images_encoded", 1)  # resolve() is never called
-        return pend._buckets[0][0:1]
+        return self.encode_prepared(*prepared, fetch=False).on_device()
 
     def encode_text(self, text: str) -> np.ndarray:
         """Query text -> (embed_dim,) L2-normalized float32 embedding.

@@ -16,11 +16,11 @@ import threading
 import time
 from contextlib import nullcontext
 from pathlib import Path
-from typing import Callable, Iterable, NamedTuple
+from typing import Iterable, NamedTuple
 
 import numpy as np
 
-from ..preprocess.io import load_batch_rgb, load_image_rgb
+from ..preprocess.io import load_batch_rgb
 from ..utils import get_logger
 from .store import IndexWriter, as_float32, load_progress
 
@@ -52,7 +52,7 @@ def scan_folder(
 
 def build_index(
     folder: str | os.PathLike,
-    encode_batch: Callable[[list], np.ndarray] | None = None,
+    pipeline_encoder,
     model_name: str = "",
     dim: int = 0,
     batch_size: int = 32,
@@ -63,24 +63,24 @@ def build_index(
     rows_per_shard: int | None = None,
     fast_decode: bool = True,
     decode_short_side: int = 448,
-    pipeline_encoder=None,
     incremental: bool = False,
     planar: bool = True,
 ) -> int:
     """Index every image in ``folder``; returns number of rows written.
 
-    ``encode_batch``: list of PIL images / uint8 RGB arrays -> (B, dim)
-    float32 embeddings (the engine provides preprocess+encode fused on
-    device). Returns 0 and writes nothing when the folder has no readable
-    images (reference returns None -> HTTP 400, oldapp.py:82-83/1964).
-    ``fast_decode`` enables the native DCT-scaled JPEG decoder, and
-    ``planar`` its planar 4:2:0 output (with a ``pipeline_encoder`` that
-    has ``encode_prepared_planar``). How each image was decoded is counted
-    (``preprocess.io``), logged, and added to the encoder's ``counters``
-    when it has them. With a ``pipeline_encoder`` that has ``timers``
-    (a ``StageTimer``), the pass is timed in stages that tile it in this
-    thread: ``index_open`` (scan, writer create or resume, the producer's
-    start), ``_consume``'s stages, then ``index_finalize`` (the
+    A producer thread decodes and host-prepares batches while this thread
+    encodes the previous one through ``pipeline_encoder`` (required; the
+    engine): its ``encode_prepared`` (and ``encode_prepared_planar``) with
+    ``fetch=False`` returns a pending result whose ``resolve()`` gives the
+    (B, dim) float32 embeddings. Returns 0 and writes nothing when the
+    folder has no readable images (reference returns None -> HTTP 400,
+    oldapp.py:82-83/1964). ``fast_decode`` enables the native DCT-scaled
+    JPEG decoder, and ``planar`` its planar 4:2:0 output. How each image
+    was decoded is counted (``preprocess.io``), logged, and added to the
+    encoder's ``counters`` when it has them. With an encoder that has
+    ``timers`` (a ``StageTimer``), the pass is timed in stages that tile
+    it in this thread: ``index_open`` (scan, writer create or resume, the
+    producer's start), ``_consume``'s stages, then ``index_finalize`` (the
     producer's join, the decode counts, ``writer.finalize``).
     """
     from collections import Counter
@@ -88,7 +88,6 @@ def build_index(
     entered = time.perf_counter()
     timers = getattr(pipeline_encoder, "timers", None)
     decode_counts: Counter = Counter()
-    feed = None
     with _stage(timers, "index_open"):
         paths = scan_folder(folder, extensions)
         done: set[str] = set()
@@ -113,55 +112,15 @@ def build_index(
                 done |= _reuse_unchanged_rows(
                     folder, paths, writer, model_name, dim, index_folder_name
                 )
-        if pipeline_encoder is not None:
-            feed = _start_producer(
-                paths, done, pipeline_encoder, batch_size, fast_decode,
-                decode_short_side, planar, decode_counts,
-            )
+        feed = _start_producer(
+            paths, done, pipeline_encoder, batch_size, fast_decode,
+            decode_short_side, planar, decode_counts,
+        )
 
-    if feed is not None:
-        _consume(feed, writer, pipeline_encoder, entered)
-    else:
-        pending_imgs: list = []
-        pending_paths: list[str] = []
-        pending_meta: list[dict] = []
-
-        def flush():
-            nonlocal pending_imgs, pending_paths, pending_meta
-            if not pending_imgs:
-                return
-            emb = np.asarray(encode_batch(pending_imgs), dtype=np.float32)
-            writer.append(emb, pending_paths, pending_meta)
-            pending_imgs, pending_paths, pending_meta = [], [], []
-
-        for img_path in paths:
-            spath = str(img_path)
-            if spath in done:
-                continue
-            try:
-                img = load_image_rgb(
-                    img_path,
-                    min_short_side=decode_short_side if fast_decode else 0,
-                    fast=fast_decode,
-                    counts=decode_counts,
-                )
-                stat = img_path.stat()
-            except Exception as e:  # skip-and-continue (oldapp.py:79-80)
-                log.warning("Error processing %s: %s", img_path, e)
-                decode_counts["decode_failed"] += 1
-                continue
-            pending_imgs.append(img)
-            pending_paths.append(spath)
-            pending_meta.append(
-                {"path": spath, "mtime": stat.st_mtime, "size": stat.st_size}
-            )
-            if len(pending_imgs) >= batch_size:
-                flush()
-        flush()
+    _consume(feed, writer, pipeline_encoder, entered)
 
     with _stage(timers, "index_finalize"):
-        if feed is not None:
-            feed.thread.join()
+        feed.thread.join()
         counters = getattr(pipeline_encoder, "counters", None)
         if counters is not None:
             for route, count in decode_counts.items():
@@ -240,33 +199,6 @@ def _reuse_unchanged_rows(
     return set(reuse_paths)
 
 
-def _pipelined_build(
-    paths, done, writer, encoder, batch_size, fast_decode, decode_short_side,
-    planar, decode_counts,
-) -> None:
-    """Overlapped host/device indexing pipeline: ``_start_producer`` then
-    ``_consume`` in this thread (``build_index`` runs the two apart, so
-    that its ``index_open`` stage covers the producer's start).
-
-    A producer thread decodes + host-prepares batches (the native batch
-    decoder and Pillow release the GIL) while the device runs the fused
-    preprocess+encode on the previous batch — double buffering via a
-    bounded queue.
-
-    With ``planar`` (and the native decoder built), JPEGs decode to
-    planar 4:2:0 YCbCr and ride the planar fused preprocess — half the
-    host->device canvas bytes. Non-JPEG / non-YCbCr images accumulate
-    into separate RGB batches; both kinds flow through the same queue,
-    tagged. ``decode_counts`` (a Counter) receives each image's decode
-    route from the producer thread.
-    """
-    entered = time.perf_counter()
-    feed = _start_producer(paths, done, encoder, batch_size, fast_decode,
-                           decode_short_side, planar, decode_counts)
-    _consume(feed, writer, encoder, entered)
-    feed.thread.join()
-
-
 class _Feed(NamedTuple):
     """The producer side of a pipelined build: its bounded queue of
     prepared batches (then None, or the exception that stopped it), its
@@ -283,7 +215,16 @@ def _start_producer(
 ) -> _Feed:
     """Start the thread that decodes and host-prepares the batches of
     ``paths`` not in ``done``, timed in its stages ``index_decode`` and
-    ``index_prepare``."""
+    ``index_prepare``, while the device encodes the previous batch: double
+    buffering through a bounded queue (the native batch decoder and Pillow
+    release the GIL).
+
+    With ``planar`` (and the native decoder built), JPEGs decode to planar
+    4:2:0 YCbCr and ride the planar fused preprocess: half the
+    host->device canvas bytes. Non-JPEG and non-YCbCr images accumulate
+    into separate RGB batches; both kinds flow through the same queue,
+    tagged. ``decode_counts`` (a Counter) receives each image's decode
+    route."""
     from ..preprocess import (
         DEFAULT_MAX_SIDE,
         planar_to_rgb_host,
@@ -416,7 +357,6 @@ def _consume(feed: _Feed, writer, encoder, entered: float) -> None:
     # embeddings to the host, so the copy waits on work that has already
     # run while batch N+1 was decoded. One batch deep: append order (= row
     # order) is preserved.
-    deferred = getattr(encoder, "supports_deferred_fetch", False)
 
     def write(emb, bpaths, bmeta) -> None:
         with _stage(timers, "index_write"):
@@ -435,22 +375,15 @@ def _consume(feed: _Feed, writer, encoder, entered: float) -> None:
             kind, prepared, bpaths, bmeta = item
             encode = (encoder.encode_prepared_planar if kind == "planar"
                       else encoder.encode_prepared)
-            if deferred:
-                pend = encode(*prepared, fetch=False)
-            else:
-                emb = np.asarray(encode(*prepared), np.float32)
+            pend = encode(*prepared, fetch=False)
             if wait == "index_first_wait" and timers is not None:
                 timers.add("index_fill", time.perf_counter() - entered)
             wait = "index_feed_wait"
-            if not deferred:
-                write(emb, bpaths, bmeta)
-                continue
             if pending is not None:
                 write(pending[0].resolve(), pending[1], pending[2])
             pending = (pend, bpaths, bmeta)
         if pending is not None:
             write(pending[0].resolve(), pending[1], pending[2])
-            pending = None
     except BaseException:
         # Consumer failure (ENOSPC, CUDA error, ...): signal the producer
         # and drain the bounded queue so its blocked put() can complete —

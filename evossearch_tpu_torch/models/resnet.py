@@ -27,13 +27,14 @@ channels-last (B, H, W, 3) and are permuted once to an NCHW view, which
 keeps them channels-last in memory.
 
 Conv epilogues: the chain of BatchNorm, ReLU, residual add and average
-pool between two convs is one call of ``ops/rn_epilogue.py``: one fused
-kernel launch for bf16 activations on the card when autograd records
-nothing (the engine's encodes), else the plain torch ops above (the CPU,
+pool between two convs is one call of ``ops/rn_epilogue.py``, which takes
+one fused kernel launch for bf16 activations on the card when autograd
+records nothing (the engine's encodes), else the plain torch ops (the CPU,
 float32, training). Both give the same bits. The plain route keeps the
-ops' order and their float32 temporaries' lifetimes.
+ops' order and their temporaries' lifetimes: a block hands its last conv's
+output over to its chain, which frees it after its BatchNorm.
 
-Counts and spans: while a thread is inside ``ops.tower.counting`` (the
+Counts and spans: while a thread is inside ``ops.fused.counting`` (the
 engine wraps each tower call in it), each plain epilogue pass and each
 fused launch on a CUDA tensor adds 1 to ``rn_epilogue_passes`` and the
 bytes it reads and writes to ``rn_epilogue_bytes``; launches add to
@@ -118,20 +119,6 @@ class BatchNorm(nn.Module):
         return rn_epilogue.batch_norm_plain(x, *self.affine())
 
 
-def _bn_relu(bn: BatchNorm, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """``relu(bn(x))``, average-pooled by ``stride``: one epilogue chain."""
-    if rn_epilogue.use_kernel(x, *bn.parameters()):
-        return rn_epilogue.bn_relu(x, *bn.affine(), stride)
-    return rn_epilogue.avg_pool_plain(rn_epilogue.relu_plain(bn(x)), stride)
-
-
-def _shortcut_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """A down block's shortcut pool: one epilogue chain where it pools."""
-    if stride != 1 and rn_epilogue.use_kernel(x):
-        return rn_epilogue.avg_pool(x, stride)
-    return rn_epilogue.avg_pool_plain(x, stride)
-
-
 def _span(name: str):
     """A ``record_function`` span while a profiler records, else nothing."""
     return profiling.annotate(name) if profiling.recording() else contextlib.nullcontext()
@@ -159,20 +146,18 @@ class Bottleneck(nn.Module):
         self.downsample = Downsample(cin, planes * 4) if downsample else None
 
     def forward(self, x: torch.Tensor, stride: int) -> torch.Tensor:
-        out = _bn_relu(self.bn1, self.conv1(x))
-        out = self.conv3(_bn_relu(self.bn2, self.conv2(out), stride))
         ds = self.downsample
         if ds is None:
-            if rn_epilogue.use_kernel(out, x, *self.bn3.parameters()):
-                return rn_epilogue.bn_add_relu(out, *self.bn3.affine(), x)
-            out = self.bn3(out)
-        elif rn_epilogue.use_kernel(out, x, *self.bn3.parameters(), *ds.bn.parameters()):
-            y = ds.conv(_shortcut_pool(x, stride))
-            return rn_epilogue.bn_bn_add_relu(out, *self.bn3.affine(), y, *ds.bn.affine())
-        else:
-            out = self.bn3(out)
-            x = ds.bn(ds.conv(_shortcut_pool(x, stride)))
-        return rn_epilogue.relu_plain(rn_epilogue.add_plain(out, x))
+            return rn_epilogue.bn_add_relu(self._branch(x, stride), *self.bn3.affine(), x)
+        return rn_epilogue.bn_bn_add_relu(
+            self._branch(x, stride), *self.bn3.affine(),
+            lambda: (ds.conv(rn_epilogue.avg_pool(x, stride)), *ds.bn.affine()))
+
+    def _branch(self, x: torch.Tensor, stride: int) -> torch.Tensor:
+        """The residual branch up to conv3's output, which ``forward``
+        hands over to the epilogue without keeping it."""
+        out = rn_epilogue.bn_relu(self.conv1(x), *self.bn1.affine())
+        return self.conv3(rn_epilogue.bn_relu(self.conv2(out), *self.bn2.affine(), stride))
 
 
 class Stage(nn.Module):
@@ -206,9 +191,9 @@ class Stem(nn.Module):
         self.bn3 = BatchNorm(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _bn_relu(self.bn1, self.conv1(x))
-        x = _bn_relu(self.bn2, self.conv2(x))
-        return _bn_relu(self.bn3, self.conv3(x), 2)
+        x = rn_epilogue.bn_relu(self.conv1(x), *self.bn1.affine())
+        x = rn_epilogue.bn_relu(self.conv2(x), *self.bn2.affine())
+        return rn_epilogue.bn_relu(self.conv3(x), *self.bn3.affine(), 2)
 
 
 class AttentionPool(nn.Module):

@@ -1,6 +1,5 @@
 """The modified ResNet's conv epilogues: their plain torch ops, counted,
-the fused CUDA kernels (``csrc/rn_epilogue.cu``), and the dispatch between
-them.
+and the fused CUDA kernels (``csrc/rn_epilogue.cu``).
 
 An epilogue chain is what runs on a conv's bf16 output before the next
 conv reads it. ``models/resnet.py`` has five, each one call here:
@@ -19,17 +18,18 @@ per channel, rounded to the input's dtype (``batch_norm_plain``); the
 pools sum in float32 with floor semantics. The kernels keep every
 rounding of the plain ops, so their output is the plain ops' bit for bit.
 
-The ``*_plain`` chains are the tower's torch ops. The model launches a
-kernel when ``use_kernel`` says so: a CUDA tensor at the bf16 compute
-dtype with nothing recorded by autograd (the engine's encodes). The CPU,
-the meta device, the float32 compute dtype and training (autograd through
-the plain ops) take the plain ops. On the kernel's route the wrappers
-check dtype, channels-last contiguity, ``C % 8 == 0``, 16-byte alignment
-and the per-channel vectors, and raise on what the kernel does not take;
-no ``try`` falls back. Each launch is on the current stream,
-unsynchronised, into an output allocated here.
+The ``*_plain`` chains are the tower's torch ops. Each public chain takes
+the route of ``ops/fused.py``, the conv output's dtype its compute dtype.
+On the kernel's route it checks dtype, channels-last contiguity, ``C % 8
+== 0``, 16-byte alignment, the per-channel vectors and the pool's stride,
+and raises on what the kernel does not take (no ``try`` falls back). The
+plain route keeps the tower's ops, their order and their temporaries'
+lifetimes: a chain frees the BatchNorm vectors and a conv output handed
+over to it (passed and kept by no caller) after that BatchNorm, and
+``bn_bn_add_relu`` runs its shortcut after ``bn(x)`` there and before the
+launch on the kernel's route.
 
-Counts, while a thread is inside ``tower.counting(counters)``: each plain
+Counts, while a thread is inside ``fused.counting(counters)``: each plain
 pass on a CUDA tensor adds 1 to ``rn_epilogue_passes`` and the bytes it
 reads and writes (every operand and the output, from their element counts
 and dtypes) to ``rn_epilogue_bytes``; each launch adds 1 to both
@@ -42,10 +42,12 @@ ops adds 1 to ``rn_epilogue_plain_cuda_calls``. Nothing synchronises.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
-from . import tower
+from . import fused
 
 PASSES = "rn_epilogue_passes"
 BYTES = "rn_epilogue_bytes"
@@ -60,9 +62,9 @@ BF16 = torch.bfloat16
 def count_pass(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
     """Counts one plain pass that read ``inputs`` and wrote ``out`` (see
     the module's docstring); returns ``out``."""
-    if tower._on_card(out):
-        tower._count(PASSES)
-        tower._count(BYTES, sum(t.numel() * t.element_size() for t in (out, *inputs)))
+    if fused.on_card(out):
+        fused.count(PASSES)
+        fused.count(BYTES, sum(t.numel() * t.element_size() for t in (out, *inputs)))
     return out
 
 
@@ -115,14 +117,7 @@ def bn_bn_add_relu_plain(x, scale, shift, y, scale2, shift2) -> torch.Tensor:
     return relu_plain(add_plain(out, batch_norm_plain(y, scale2, shift2)))
 
 
-# -- dispatch and wrappers --------------------------------------------------------
-
-
-def use_kernel(x: torch.Tensor, *operands: torch.Tensor) -> bool:
-    """Whether the chain on conv output ``x`` (the compute dtype's), with
-    ``operands`` (the residual, the BatchNorms' parameters) launches its
-    kernel; counts a chain on a CUDA tensor that takes the plain ops."""
-    return tower._use_kernel(x, x.dtype, *operands, plain=PLAIN_CUDA)
+# -- the chains -------------------------------------------------------------------
 
 
 def _check_activation(t: torch.Tensor, what: str) -> None:
@@ -140,7 +135,7 @@ def _check_affine(scale: torch.Tensor, shift: torch.Tensor, c: int) -> None:
     for p, what in ((scale, "BatchNorm scale"), (shift, "BatchNorm shift")):
         if p.shape != (c,):
             raise ValueError(f"{what} shape {tuple(p.shape)} does not match {c} channels")
-        tower._check(p, what, torch.float32)
+        fused.check(p, what, torch.float32)
 
 
 def _check_stride(stride: int) -> None:
@@ -149,9 +144,9 @@ def _check_stride(stride: int) -> None:
 
 
 def _launch(name: str, x: torch.Tensor, args: list, nbytes: int) -> None:
-    tower._launch(name, x.device, args, FUSED)
-    tower._count(PASSES)
-    tower._count(BYTES, nbytes)
+    fused.launch(name, x.device, args, FUSED)
+    fused.count(PASSES)
+    fused.count(BYTES, nbytes)
 
 
 def _pooled(x: torch.Tensor) -> torch.Tensor:
@@ -162,7 +157,13 @@ def _pooled(x: torch.Tensor) -> torch.Tensor:
 
 def bn_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             stride: int = 1) -> torch.Tensor:
-    """``bn_relu_plain`` in one launch (``stride`` 1 or 2)."""
+    """``bn_relu_plain``: one launch on the kernel's route (``stride`` 1
+    or 2)."""
+    if not fused.use_kernel(x, x.dtype, scale, shift, plain=PLAIN_CUDA):
+        y = batch_norm_plain(x, scale, shift)
+        del scale, shift  # freed here if handed over (see the module's docstring)
+        y = relu_plain(y)
+        return avg_pool_plain(y, stride)
     _check_activation(x, "conv output")
     _check_stride(stride)
     n, c, h, w = x.shape
@@ -180,7 +181,11 @@ def bn_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 def bn_add_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                 r: torch.Tensor) -> torch.Tensor:
-    """``bn_add_relu_plain`` in one launch."""
+    """``bn_add_relu_plain``: one launch on the kernel's route."""
+    if not fused.use_kernel(x, x.dtype, scale, shift, r, plain=PLAIN_CUDA):
+        out = batch_norm_plain(x, scale, shift)
+        del x, scale, shift  # freed here if handed over
+        return relu_plain(add_plain(out, r))
     _check_activation(x, "conv output")
     _check_activation(r, "residual")
     if r.shape != x.shape:
@@ -194,8 +199,18 @@ def bn_add_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 def bn_bn_add_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                   y: torch.Tensor, scale2: torch.Tensor, shift2: torch.Tensor) -> torch.Tensor:
-    """``bn_bn_add_relu_plain`` in one launch."""
+                   shortcut: Callable[[], tuple]) -> torch.Tensor:
+    """``bn_bn_add_relu_plain`` of ``x`` and ``shortcut()``, which returns
+    the shortcut conv's output and its BatchNorm's (scale, shift): one
+    launch on the kernel's route, which runs the shortcut first; the plain
+    route runs it after ``bn(x)``. The shortcut's operands take the route
+    that ``x`` and its BatchNorm take."""
+    if not fused.use_kernel(x, x.dtype, scale, shift, plain=PLAIN_CUDA):
+        out = batch_norm_plain(x, scale, shift)
+        del x, scale, shift  # freed here if handed over
+        y = batch_norm_plain(*shortcut())
+        return relu_plain(add_plain(out, y))
+    y, scale2, shift2 = shortcut()
     _check_activation(x, "conv output")
     _check_activation(y, "shortcut conv output")
     if y.shape != x.shape:
@@ -210,10 +225,13 @@ def bn_bn_add_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 
 def avg_pool(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """``avg_pool_plain`` in one launch (``stride`` 1 returns ``x``)."""
-    _check_stride(stride)
+    """``avg_pool_plain``: one launch on the kernel's route (``stride`` 1
+    returns ``x``, and is no chain)."""
     if stride == 1:
         return x
+    if not fused.use_kernel(x, x.dtype, plain=PLAIN_CUDA):
+        return avg_pool_plain(x, stride)
+    _check_stride(stride)
     _check_activation(x, "pool input")
     n, c, h, w = x.shape
     out = _pooled(x)

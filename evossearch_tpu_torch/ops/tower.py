@@ -1,6 +1,5 @@
 """The CLIP towers' elementwise chains: the fused CUDA kernels
-(``csrc/tower_fused.cu``), their plain versions, and the dispatch between
-them.
+(``csrc/tower_fused.cu``) and their plain versions.
 
 Each chain between two products of ``models/layers.py`` is one call here:
 
@@ -16,108 +15,27 @@ Each chain between two products of ``models/layers.py`` is one call here:
   order (torch's warp softmax), within one bf16 ulp.
 
 The plain versions (``*_plain``) are the towers' torch code, unchanged.
-A wrapper launches its kernel when the input lies on a CUDA device, the
-activation (compute) dtype is bf16 and autograd records nothing (grad
-mode off, or no operand requires grad): the engine's encodes. Everything
-else takes the plain version: the CPU, the float32 compute dtype, and
-training, whose backward is autograd's through the plain ops. On the
-kernel's route the wrapper checks dtype, shape, contiguity and 16-byte
-alignment and raises on what the kernel does not take; no ``try`` falls
-back. Each launch is on the current stream, unsynchronised, into outputs
-allocated here.
-
-Counts: while a thread is inside ``counting(counters)`` (the engine wraps
-each tower call in it), each launch adds 1 to ``tower_fused_launches`` of
-those ``utils.logging.Counters``, and each call on a CUDA tensor that took
-the plain version adds 1 to ``tower_plain_cuda_calls``. The modified
-ResNet's conv epilogues count into the same sink under their own names
-(``ops/rn_epilogue.py``).
+Each wrapper takes the route of ``ops/fused.py``; on the kernel's it
+checks dtype, shape, contiguity and 16-byte alignment and raises on what
+the kernel does not take (no ``try`` falls back). Each launch counts under
+``tower_fused_launches``, each CUDA call on the plain route under
+``tower_plain_cuda_calls``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import threading
 
 import numpy as np
 import torch
+
+from . import fused
 
 LN_EPS = 1e-5  # OpenAI/HF CLIP LayerNorm epsilon
 FUSED = "tower_fused_launches"
 PLAIN_CUDA = "tower_plain_cuda_calls"
 _MAX_LN_WIDTH = 2048  # csrc/tower_fused.cu: 16 vectors of 4 values a lane
 _MAX_SOFTMAX_LEN = 1024  # csrc/tower_fused.cu: 32 elements a lane
-
-_sink = threading.local()
-
-
-@contextlib.contextmanager
-def counting(counters):
-    """Count this thread's tower calls into ``counters`` (an object with
-    ``add(name)``, such as ``utils.logging.Counters``) while inside."""
-    prev = getattr(_sink, "counters", None)
-    _sink.counters = counters
-    try:
-        yield counters
-    finally:
-        _sink.counters = prev
-
-
-def _count(name: str, value: float = 1.0) -> None:
-    counters = getattr(_sink, "counters", None)
-    if counters is not None:
-        counters.add(name, value)
-
-
-def _on_card(x: torch.Tensor) -> bool:
-    return x.device.type == "cuda"
-
-
-def _use_kernel(x: torch.Tensor, dtype: torch.dtype, *operands: torch.Tensor,
-                plain: str = PLAIN_CUDA) -> bool:
-    """Whether a wrapper launches its kernel for input ``x`` at compute
-    dtype ``dtype`` (see the module's docstring); counts a CUDA call that
-    takes the plain version under ``plain``."""
-    if not _on_card(x):
-        return False
-    recorded = torch.is_grad_enabled() and any(t.requires_grad for t in (x, *operands))
-    if dtype == torch.bfloat16 and not recorded:
-        return True
-    _count(plain)
-    return False
-
-
-def _check(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{what} must be 16-byte aligned")
-
-
-def _launch(name: str, device: torch.device, args: list, counter: str = FUSED) -> None:
-    """Launch entry point ``name`` (``_build._SIGNATURES``) on ``device``'s
-    current stream and count it under ``counter``; tensors in ``args``
-    pass as their data pointers. The text tower at batch 1 is paced by
-    these launches, so the stream is read raw and the device switched
-    only when it differs."""
-    from ._build import entry
-
-    fn = entry(name)
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == current:
-        rc = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args, stream)
-    if rc:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(counter)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -162,23 +80,23 @@ def softmax_cast_plain(logits: torch.Tensor, scale: float, causal: bool,
 
 
 def _bias_call(name: str, y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    _check(y, "GEMM output", torch.float32)
+    fused.check(y, "GEMM output", torch.float32)
     n = y.shape[-1]
     bias = bias.float()
     if bias.shape != (n,):
         raise ValueError(f"bias shape {tuple(bias.shape)} does not match width {n}")
-    _check(bias, "bias", torch.float32)
+    fused.check(bias, "bias", torch.float32)
     if n % 8:
         raise ValueError(f"width {n} must be a multiple of 8")
     out = torch.empty(y.shape, dtype=torch.bfloat16, device=y.device)
-    _launch(name, y.device, [y, bias, out, y.numel() // max(n, 1), n])
+    fused.launch(name, y.device, [y, bias, out, y.numel() // max(n, 1), n], FUSED)
     return out
 
 
 def bias_cast(y: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``bf16(y + bias)`` of a float32 GEMM output (..., N) and a bias (N)
     for compute dtype ``dtype`` (see ``bias_cast_plain``)."""
-    if not _use_kernel(y, dtype, bias):
+    if not fused.use_kernel(y, dtype, bias, plain=PLAIN_CUDA):
         return bias_cast_plain(y, bias, dtype)
     return _bias_call("bias_cast", y, bias)
 
@@ -186,27 +104,28 @@ def bias_cast(y: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.
 def bias_gelu_cast(y: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``quick_gelu(bias_cast(y, bias, dtype))`` (see
     ``bias_gelu_cast_plain``)."""
-    if not _use_kernel(y, dtype, bias):
+    if not fused.use_kernel(y, dtype, bias, plain=PLAIN_CUDA):
         return bias_gelu_cast_plain(y, bias, dtype)
     return _bias_call("bias_gelu_cast", y, bias)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """LayerNorm of ``x`` over its last dim (see ``layer_norm_plain``)."""
-    if not _use_kernel(x, x.dtype, scale, bias):
+    if not fused.use_kernel(x, x.dtype, scale, bias, plain=PLAIN_CUDA):
         return layer_norm_plain(x, scale, bias)
-    _check(x, "LayerNorm input", torch.bfloat16)
+    fused.check(x, "LayerNorm input", torch.bfloat16)
     w = x.shape[-1]
     scale, bias = scale.float(), bias.float()
     for p, what in ((scale, "LayerNorm scale"), (bias, "LayerNorm bias")):
         if p.shape != (w,):
             raise ValueError(f"{what} shape {tuple(p.shape)} does not match width {w}")
-        _check(p, what, torch.float32)
+        fused.check(p, what, torch.float32)
     if w % 4 or w > _MAX_LN_WIDTH:
         raise ValueError(f"width {w} must be a multiple of 4 up to {_MAX_LN_WIDTH}")
     rows = x.numel() // w
     out = torch.empty_like(x)
-    _launch("layer_norm", x.device, [x, scale, bias, out, rows, w, _mean_factor(rows, w), LN_EPS])
+    fused.launch("layer_norm", x.device,
+                 [x, scale, bias, out, rows, w, _mean_factor(rows, w), LN_EPS], FUSED)
     return out
 
 
@@ -221,14 +140,14 @@ def softmax_cast(logits: torch.Tensor, scale: float, causal: bool,
                  dtype: torch.dtype) -> torch.Tensor:
     """Attention weights in ``dtype`` from float32 (..., T, T) logits
     (see ``softmax_cast_plain``)."""
-    if not _use_kernel(logits, dtype):
+    if not fused.use_kernel(logits, dtype, plain=PLAIN_CUDA):
         return softmax_cast_plain(logits, scale, causal, dtype)
-    _check(logits, "logits", torch.float32)
+    fused.check(logits, "logits", torch.float32)
     t = logits.shape[-1]
     if logits.dim() < 2 or logits.shape[-2] != t or t > _MAX_SOFTMAX_LEN:
         raise ValueError(f"logits {tuple(logits.shape)} must be (..., T, T), "
                          f"T <= {_MAX_SOFTMAX_LEN}")
     out = torch.empty(logits.shape, dtype=torch.bfloat16, device=logits.device)
-    _launch("softmax_cast", logits.device,
-            [logits, out, logits.numel() // t, t, scale, int(causal)])
+    fused.launch("softmax_cast", logits.device,
+                 [logits, out, logits.numel() // t, t, scale, int(causal)], FUSED)
     return out

@@ -10,11 +10,12 @@ times, the best run reported:
 
   * decode-only: ``preprocess.io.load_batch_planar`` over batches of 128
     at short side 224, fast decode;
-  * stub-build: the port's ``index.builder._pipelined_build`` (the
+  * stub-build: the port's indexing pipeline as ``index.build_index``
+    runs it, ``index.builder._start_producer`` then ``_consume`` (the
     producer thread's decode, stat and ``prepare_batch_planar``, the
-    bounded queue, the consumer loop) with a stub encoder that returns
-    zeros and a stub writer that counts rows, so everything but the
-    device's encode runs.
+    bounded queue, the consumer loop with its deferred fetch) with a stub
+    encoder whose pending results resolve to zeros and a stub writer that
+    counts rows, so everything but the device's encode runs.
 
 Then one stub build under ``cProfile``, its top 25 functions by
 cumulative time. Every number is the host's, labelled with the host's CPU
@@ -49,7 +50,7 @@ import numpy as np
 
 from .. import native
 from ..core import CLIP_MODEL_SPECS
-from ..index.builder import _pipelined_build
+from ..index.builder import _consume, _start_producer
 from ..preprocess.io import has_native_decode, load_batch_planar
 
 N = 768
@@ -60,16 +61,27 @@ RUNS = 3
 TOP = 25
 
 
+class StubPending:
+    """A pending encode as the engine returns it for ``fetch=False``."""
+
+    def __init__(self, emb: np.ndarray):
+        self.emb = emb
+
+    def resolve(self) -> np.ndarray:
+        return self.emb
+
+
 class StubEncoder:
-    """What the build's consumer calls, returning zeros: no device work."""
+    """What the build's consumer calls (``fetch=False``), resolving to
+    zeros: no device work."""
 
     spec = CLIP_MODEL_SPECS["ViT-B/32"]
 
-    def encode_prepared_planar(self, y, c, *rest):
-        return np.zeros((y.shape[0], self.spec.embed_dim), np.float32)
+    def encode_prepared_planar(self, y, c, *rest, fetch=False):
+        return StubPending(np.zeros((y.shape[0], self.spec.embed_dim), np.float32))
 
-    def encode_prepared(self, canvases, *rest):
-        return np.zeros((canvases.shape[0], self.spec.embed_dim), np.float32)
+    def encode_prepared(self, canvases, *rest, fetch=False):
+        return StubPending(np.zeros((canvases.shape[0], self.spec.embed_dim), np.float32))
 
 
 class StubWriter:
@@ -109,10 +121,12 @@ def synth(folder: Path, n: int) -> list[Path]:
 
 def run_build(paths: list[Path]) -> tuple[float, int, Counter]:
     """One stub build: seconds, rows written, decode routes."""
-    writer, counts = StubWriter(), Counter()
+    writer, encoder, counts = StubWriter(), StubEncoder(), Counter()
     t0 = time.perf_counter()
-    _pipelined_build(paths, set(), writer, StubEncoder(), BATCH, fast_decode=True,
-                     decode_short_side=SHORT, planar=True, decode_counts=counts)
+    feed = _start_producer(paths, set(), encoder, BATCH, fast_decode=True,
+                           decode_short_side=SHORT, planar=True, decode_counts=counts)
+    _consume(feed, writer, encoder, t0)
+    feed.thread.join()
     return time.perf_counter() - t0, writer.rows, counts
 
 

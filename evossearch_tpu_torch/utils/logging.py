@@ -16,7 +16,7 @@ from contextlib import contextmanager
 from . import profiling
 
 _FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
-_setup_lock = __import__("threading").Lock()
+_setup_lock = threading.Lock()
 
 
 def get_logger(name: str) -> logging.Logger:

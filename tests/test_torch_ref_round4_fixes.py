@@ -317,8 +317,9 @@ def test_deferred_fetch_matches_sync(engine, folder):
 
 
 def test_builder_uses_deferred_fetch(engine, folder, monkeypatch):
-    """The pipelined build routes through fetch=False exactly once per
-    batch and the resulting store matches a build with deferral disabled."""
+    """The pipelined build routes every batch through fetch=False (whose
+    rows equal the synchronous encode's: test_deferred_fetch_matches_sync),
+    and the store holds a row for each image."""
     from evossearch_tpu_torch.index.store import IndexReader
 
     fetch_args = []
@@ -338,15 +339,29 @@ def test_builder_uses_deferred_fetch(engine, folder, monkeypatch):
     monkeypatch.setattr(SearchEngine, "encode_prepared", spy_rgb)
     assert engine.index_folder(str(folder)) == 3
     assert fetch_args and all(f is False for f in fetch_args)
-    emb_deferred = IndexReader.open(str(folder)).embeddings().copy()
+    emb = IndexReader.open(str(folder)).embeddings()
+    assert emb.shape == (3, TINY.embed_dim) and np.isfinite(emb).all()
 
-    # deferral off -> synchronous arm -> identical rows
-    monkeypatch.setattr(SearchEngine, "supports_deferred_fetch", False)
-    fetch_args.clear()
-    assert engine.index_folder(str(folder)) == 3
-    assert fetch_args and all(f is True for f in fetch_args)
-    emb_sync = IndexReader.open(str(folder)).embeddings()
-    np.testing.assert_array_equal(emb_deferred, emb_sync)
+
+def test_pending_on_device_matches_resolve(engine):
+    """PendingEmbeddings.on_device hands over the rows resolve() would copy
+    to the host, on the engine's device, and counts them as encoded;
+    encode_image_device takes its row so."""
+    from evossearch_tpu_torch.preprocess import prepare_batch
+
+    rng = np.random.default_rng(6)
+    arrays = [rng.integers(0, 256, (48, 64, 3), np.uint8) for _ in range(3)]
+    prepared = prepare_batch(arrays, target=TINY.image_size)
+    host = engine.encode_prepared(*prepared, fetch=False).resolve()
+    before = engine.counters.snapshot().get("images_encoded", 0)
+    rows = engine.encode_prepared(*prepared, fetch=False).on_device()
+    assert isinstance(rows, torch.Tensor) and rows.device.type == engine.device.type
+    np.testing.assert_array_equal(rows.cpu().numpy(), host)
+    assert engine.counters.snapshot()["images_encoded"] == before + 3
+    one = engine.encode_image_device(arrays[0])
+    assert one.shape == (1, TINY.embed_dim)
+    np.testing.assert_array_equal(one.cpu().numpy(), engine.encode_images(arrays[:1]))
+    assert engine.counters.snapshot()["images_encoded"] == before + 5
 
 
 def test_results_json_splice_parses_identically():

@@ -4,18 +4,24 @@ and ``rn_epilogue_bytes`` against counts worked from the shapes alone, on
 the plain route (float32, and bf16 under autograd) and on the fused
 kernels' route (bf16 with nothing recorded), at a tiny spec on the CPU and
 at RN50 and RN50x64 on the meta device (no memory, no arithmetic); the
-dispatch between the routes and its counters; the wrappers' refusals;
-nothing counted on CPU tensors or outside ``ops.tower.counting``; the
+dispatch between the routes and its counters; the chains' refusals;
+nothing counted on CPU tensors or outside ``ops.fused.counting``; the
 tower's output bit-equal with counting on and off and on either route;
 the stem, stage and attention-pool spans only while a profiler records;
-and the engine's image encodes counting into its ``Counters``.
+the engine's image encodes counting into its ``Counters``; the model
+against a frozen copy of its code from before the chains chose their own
+route (the same aten ops in the same order and the same peak of live
+bytes on the plain route, the same launches with the same arguments on
+the kernels' route); and the one device test of ``ops/fused.py`` moving
+both kernel families.
 
-A simulated card (``tower._on_card`` patched to True) stands in for a
+A simulated card (``fused.on_card`` patched to True) stands in for a
 CUDA device, as in ``tests/test_torch_tower.py``; on it the kernels'
-launches run a stand-in that computes each entry point's plain chain from
-the arguments the wrappers pass. The kernels themselves run on the card:
-``tests/test_torch_rn_epilogue_fused.py``."""
+launches (``fused.launch``) run a stand-in that computes each entry
+point's plain chain from the arguments the chains pass. The kernels
+themselves run on the card: ``tests/test_torch_rn_epilogue_fused.py``."""
 
+import contextlib
 import dataclasses
 import weakref
 
@@ -29,7 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
 from evossearch_tpu_torch.core.constants import CLIPResNetSpec
 from evossearch_tpu_torch.models import resnet
-from evossearch_tpu_torch.ops import _build, rn_epilogue, tower
+from evossearch_tpu_torch.ops import _build, fused, rn_epilogue, tower
 from evossearch_tpu_torch.utils import profiling
 from evossearch_tpu_torch.utils.logging import Counters
 
@@ -158,12 +164,13 @@ def expected_fused(spec: CLIPResNetSpec, batch: int) -> tuple[int, int]:
     return launches, nbytes
 
 
-def _stand_in(name, device, args, counter=tower.FUSED):
+def _stand_in(name, device, args, counter):
     """A kernel launch on the simulated card: the entry point's plain chain
-    computed from the arguments the wrapper passes, written into its
-    output, counted as ``tower._launch`` counts."""
+    computed from the arguments the chain passes, written into its
+    output, counted as ``fused.launch`` counts."""
     assert len(args) + 1 == len(_build._SIGNATURES[name][2])  # and the stream
-    with tower.counting(None):
+    assert counter == FUSED
+    with fused.counting(None):
         if name == "rn_bn_relu":
             x, s, b, out, pixels, c = args
             want = rn_epilogue.bn_relu_plain(x, s, b)
@@ -187,7 +194,7 @@ def _stand_in(name, device, args, counter=tower.FUSED):
         assert out.dtype == x.dtype == torch.bfloat16 and out.shape == want.shape
         assert out.is_contiguous(memory_format=torch.channels_last)
         out.copy_(want)
-    tower._count(counter)
+    fused.count(counter)
 
 
 def _tower(spec, seed=0):
@@ -212,15 +219,15 @@ def _images(spec, n, seed=1, dtype=torch.float32):
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launches run ``_stand_in``."""
-    monkeypatch.setattr(tower, "_on_card", lambda x: True)
-    monkeypatch.setattr(tower, "_launch", _stand_in)
+    monkeypatch.setattr(fused, "on_card", lambda x: True)
+    monkeypatch.setattr(fused, "launch", _stand_in)
 
 
 def _count(model, images, dtype, grad=False):
     """The tower's output and counters; with ``grad`` autograd records
     (the parameters require grad), which takes the plain route."""
     counters = Counters()
-    with torch.set_grad_enabled(grad), tower.counting(counters):
+    with torch.set_grad_enabled(grad), fused.counting(counters):
         out = model(images, dtype)
     return out.detach(), counters.snapshot()
 
@@ -337,7 +344,7 @@ def test_nothing_counted_outside_counting(card):
     under autograd) and the kernels' (bf16, nothing recorded)."""
     model, images = _tower(TINY_RN), _images(TINY_RN, 2)
     counters = Counters()
-    with tower.counting(counters):
+    with fused.counting(counters):
         pass
     model(images, torch.bfloat16)
     with torch.no_grad():
@@ -356,7 +363,7 @@ def test_output_bit_equal_with_counting_on_and_off(dtype, grad, monkeypatch):
     model, images = _tower(TINY_RN), _images(TINY_RN, 3)
     with torch.no_grad():
         plain = model(images, dtype)
-    monkeypatch.setattr(tower, "_on_card", lambda x: True)
+    monkeypatch.setattr(fused, "on_card", lambda x: True)
     counted, got = _count(model, images, dtype, grad)
     assert got[PASSES] > 0
     assert torch.equal(counted, plain)
@@ -406,6 +413,9 @@ def _act(n=2, c=16, h=6, w=6, dtype=torch.bfloat16, seed=9):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    """On the kernels' route (bf16 on the card, nothing recorded) each
+    chain refuses what its kernel does not take; a float32 conv output is
+    the plain route's, and takes the plain ops."""
     x, r = _act(), _act(seed=10)
     s, b = torch.ones(16), torch.zeros(16)
     nchw = x.contiguous()  # NCHW-contiguous
@@ -416,21 +426,29 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         "bn_relu": lambda t, c=16: rn_epilogue.bn_relu(t, s[:c], b[:c]),
         "bn_relu_pool": lambda t, c=16: rn_epilogue.bn_relu(t, s[:c], b[:c], 2),
         "bn_add_relu": lambda t, c=16: rn_epilogue.bn_add_relu(t, s[:c], b[:c], t),
-        "bn_bn_add_relu": lambda t, c=16: rn_epilogue.bn_bn_add_relu(t, s[:c], b[:c], t,
-                                                                     s[:c], b[:c]),
+        "bn_bn_add_relu": lambda t, c=16: rn_epilogue.bn_bn_add_relu(
+            t, s[:c], b[:c], lambda: (t, s[:c], b[:c])),
         "avg_pool": lambda t, c=16: rn_epilogue.avg_pool(t, 2),
+    }
+    plain = {
+        "bn_relu": lambda t: rn_epilogue.bn_relu_plain(t, s, b),
+        "bn_relu_pool": lambda t: rn_epilogue.bn_relu_plain(t, s, b, 2),
+        "bn_add_relu": lambda t: rn_epilogue.bn_add_relu_plain(t, s, b, t),
+        "bn_bn_add_relu": lambda t: rn_epilogue.bn_bn_add_relu_plain(t, s, b, t, s, b),
+        "avg_pool": lambda t: rn_epilogue.avg_pool_plain(t, 2),
     }
     with torch.no_grad():
         for name, call in calls.items():
             with pytest.raises(ValueError, match="channels-last"):
                 call(nchw)
-            with pytest.raises(ValueError, match="bfloat16"):
-                call(x.float())
             with pytest.raises(ValueError, match="multiple of 8"):
                 call(narrow, 12)
             with pytest.raises(ValueError, match="aligned"):
                 call(unaligned)
             call(x)  # and takes what it should
+            with fused.counting(Counters()) as c:
+                assert torch.equal(call(x.float()), plain[name](x.float()))
+            assert c.snapshot()[PLAIN] == 1 and FUSED not in c.snapshot()
         with pytest.raises(ValueError, match="shape"):
             rn_epilogue.bn_relu(x, s[:8], b[:8])
         with pytest.raises(ValueError, match="float32"):
@@ -439,8 +457,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
             rn_epilogue.bn_add_relu(x, s, b, r[:, :, :4])
         with pytest.raises(ValueError, match="channels-last"):
             rn_epilogue.bn_add_relu(x, s, b, r.contiguous())
+        with pytest.raises(ValueError, match="bfloat16"):
+            rn_epilogue.bn_add_relu(x, s, b, r.float())
         with pytest.raises(ValueError, match="shortcut"):
-            rn_epilogue.bn_bn_add_relu(x, s, b, r[:1], s, b)
+            rn_epilogue.bn_bn_add_relu(x, s, b, lambda: (r[:1], s, b))
+        with pytest.raises(ValueError, match="bfloat16"):
+            rn_epilogue.bn_bn_add_relu(x, s, b, lambda: (r.float(), s, b))
         for stride in (3, 4):
             with pytest.raises(ValueError, match="2x2"):
                 rn_epilogue.bn_relu(x, s, b, stride)
@@ -452,15 +474,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
 def test_counting_launches_the_same_ops_in_the_same_order(monkeypatch):
     """The dispatched aten ops, in order, are those of the tower before
     the counters: BatchNorm's affine as cast, mul, add, cast."""
-    class Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func))
-            return func(*args, **(kwargs or {}))
-
     bn = resnet.BatchNorm(8)
     g = torch.Generator().manual_seed(3)
     with torch.no_grad():
@@ -470,8 +483,8 @@ def test_counting_launches_the_same_ops_in_the_same_order(monkeypatch):
     x = torch.randn(2, 8, 5, 5, generator=g).to(torch.bfloat16)
     runs = []
     for on_card in (False, True):
-        monkeypatch.setattr(tower, "_on_card", lambda t, on=on_card: on)
-        with torch.no_grad(), tower.counting(Counters()), Ops() as mode:
+        monkeypatch.setattr(fused, "on_card", lambda t, on=on_card: on)
+        with torch.no_grad(), fused.counting(Counters()), _Ops() as mode:
             y = bn(x)
         runs.append((mode.ops, y))
     assert runs[0][0] == runs[1][0]
@@ -486,12 +499,13 @@ def test_counting_launches_the_same_ops_in_the_same_order(monkeypatch):
 
 
 class _LiveBytes(TorchDispatchMode):
-    """The most bytes held at once by the storages of tensors that ops
-    made inside the mode (a view adds none), read as each op returns."""
+    """The bytes held by the storages of tensors that ops made inside the
+    mode (a view adds none), read as each op returns (``trace``), and the
+    most of them at once (``peak``)."""
 
     def __init__(self):
         super().__init__()
-        self.refs, self.peak = [], 0
+        self.refs, self.peak, self.trace = [], 0, []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -499,7 +513,8 @@ class _LiveBytes(TorchDispatchMode):
                       if isinstance(t, torch.Tensor)]
         live = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
                 for t in (r() for r in self.refs) if t is not None}
-        self.peak = max(self.peak, sum(live.values()))
+        self.trace.append(sum(live.values()))
+        self.peak = max(self.peak, self.trace[-1])
         return out
 
 
@@ -515,7 +530,7 @@ def _old_batch_norm(bn, x):
 def test_peak_memory_is_the_one_expression_forms(on_card, monkeypatch):
     """The counted BatchNorm and pool free each float32 temporary when
     the one-expression forms did, so they hold no more at once."""
-    monkeypatch.setattr(tower, "_on_card", lambda t: on_card)
+    monkeypatch.setattr(fused, "on_card", lambda t: on_card)
     bn = resnet.BatchNorm(16)
     x = torch.randn(4, 16, 12, 12).to(torch.bfloat16)
     for new, old in ((lambda: bn(x), lambda: _old_batch_norm(bn, x)),
@@ -523,7 +538,7 @@ def test_peak_memory_is_the_one_expression_forms(on_card, monkeypatch):
                       lambda: F.avg_pool2d(x.float(), 2).to(x.dtype))):
         peaks = []
         for fn in (new, old):
-            with torch.no_grad(), tower.counting(Counters()), _LiveBytes() as mode:
+            with torch.no_grad(), fused.counting(Counters()), _LiveBytes() as mode:
                 out = fn()
             peaks.append(mode.peak)
             del out
@@ -574,3 +589,165 @@ def test_engine_counts_its_image_encodes(compute, card):
         assert tower.PLAIN_CUDA not in engine.counters.snapshot()
     finally:
         engine.close()
+
+
+# -- the model before its chains chose their own route, frozen ------------------
+# ``models/resnet.py``'s ``_bn_relu``, ``_shortcut_pool``, ``Stem.forward`` and
+# ``Bottleneck.forward`` as they were when the model decided each chain's
+# route itself; only the route test, then ``rn_epilogue.use_kernel``, and the
+# shortcut chain's argument, then its conv output, are spelled in today's names.
+
+
+def _old_use_kernel(x, *operands):
+    return fused.use_kernel(x, x.dtype, *operands, plain=PLAIN)
+
+
+def _old_bn_relu(bn, x, stride=1):
+    if _old_use_kernel(x, *bn.parameters()):
+        return rn_epilogue.bn_relu(x, *bn.affine(), stride)
+    return rn_epilogue.avg_pool_plain(rn_epilogue.relu_plain(bn(x)), stride)
+
+
+def _old_shortcut_pool(x, stride):
+    if stride != 1 and _old_use_kernel(x):
+        return rn_epilogue.avg_pool(x, stride)
+    return rn_epilogue.avg_pool_plain(x, stride)
+
+
+def _old_bn_bn_add_relu(x, scale, shift, y, scale2, shift2):
+    return rn_epilogue.bn_bn_add_relu(x, scale, shift, lambda: (y, scale2, shift2))
+
+
+def _old_bottleneck_forward(self, x, stride):
+    out = _old_bn_relu(self.bn1, self.conv1(x))
+    out = self.conv3(_old_bn_relu(self.bn2, self.conv2(out), stride))
+    ds = self.downsample
+    if ds is None:
+        if _old_use_kernel(out, x, *self.bn3.parameters()):
+            return rn_epilogue.bn_add_relu(out, *self.bn3.affine(), x)
+        out = self.bn3(out)
+    elif _old_use_kernel(out, x, *self.bn3.parameters(), *ds.bn.parameters()):
+        y = ds.conv(_old_shortcut_pool(x, stride))
+        return _old_bn_bn_add_relu(out, *self.bn3.affine(), y, *ds.bn.affine())
+    else:
+        out = self.bn3(out)
+        x = ds.bn(ds.conv(_old_shortcut_pool(x, stride)))
+    return rn_epilogue.relu_plain(rn_epilogue.add_plain(out, x))
+
+
+def _old_stem_forward(self, x):
+    x = _old_bn_relu(self.bn1, self.conv1(x))
+    x = _old_bn_relu(self.bn2, self.conv2(x))
+    return _old_bn_relu(self.bn3, self.conv3(x), 2)
+
+
+def _new_and_old(run):
+    """``run()`` with today's model, then with the frozen copy in place."""
+    new = run()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(resnet.Stem, "forward", _old_stem_forward)
+        mp.setattr(resnet.Bottleneck, "forward", _old_bottleneck_forward)
+        return new, run()
+
+
+class _Ops(TorchDispatchMode):
+    """The dispatched aten ops, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _forward_in(mode, model, images, dtype, grad):
+    with torch.set_grad_enabled(grad), fused.counting(Counters()) as c, mode:
+        out = model(images, dtype)
+    return out.detach(), mode, c.snapshot()
+
+
+@pytest.mark.parametrize("dtype, grad", ROUTES)
+@pytest.mark.parametrize("where", ["tiny_cpu", "rn50_meta"])
+def test_plain_route_runs_the_old_models_ops_in_order(where, dtype, grad):
+    """The plain route (float32, and bf16 under autograd) dispatches the
+    aten ops of the model before its chains chose their own route, in the
+    same order: a tiny spec on the CPU (the outputs bit-equal too) and
+    RN50 on the meta device."""
+    if where == "tiny_cpu":
+        model, images = _tower(TINY_RN), _images(TINY_RN, 2)
+    else:
+        spec = CLIP_MODEL_SPECS["RN50"]
+        with torch.device("meta"):
+            model = resnet.ModifiedResNet(spec)
+        images = torch.empty(2, spec.image_size, spec.image_size, 3, device="meta", dtype=dtype)
+    new, old = _new_and_old(lambda: _forward_in(_Ops(), model, images, dtype, grad))
+    assert len(new[1].ops) > 300 and new[1].ops == old[1].ops
+    if where == "tiny_cpu":
+        assert torch.equal(new[0], old[0])
+
+
+@pytest.mark.parametrize("dtype, grad", ROUTES)
+def test_plain_route_holds_the_old_models_peak_of_live_bytes(dtype, grad):
+    """The plain route holds the bytes the model before its chains chose
+    their own route held, op by op, so at its peak too: each chain frees
+    the BatchNorm vectors and the conv output handed over to it where the
+    old model freed them."""
+    model, images = _tower(TINY_RN), _images(TINY_RN, 3)
+    new, old = _new_and_old(lambda: _forward_in(_LiveBytes(), model, images, dtype, grad))
+    assert new[1].peak > 0 and new[1].peak == old[1].peak
+    assert len(new[1].trace) > 300 and new[1].trace == old[1].trace
+    assert torch.equal(new[0], old[0])
+
+
+@pytest.mark.parametrize("spec, batch", [(TINY_RN, 3), (ODD_RN, 2)])
+def test_kernel_route_makes_the_old_models_launches(spec, batch, card, monkeypatch):
+    """On the simulated card's kernel route (bf16, nothing recorded) the
+    model makes the launches of the model before its chains chose their
+    own route, in the same order with the same arguments, and counts the
+    same; the outputs are bit-equal."""
+    launches = []
+
+    def recording(name, device, args, counter):
+        _stand_in(name, device, args, counter)
+        launches.append((name, [a.clone() if isinstance(a, torch.Tensor) else a for a in args]))
+
+    monkeypatch.setattr(fused, "launch", recording)
+    model, images = _tower(spec), _images(spec, batch)
+
+    def run():
+        launches.clear()
+        out, _, counts = _forward_in(contextlib.nullcontext(), model, images, torch.bfloat16, False)
+        return out, list(launches), counts
+
+    new, old = _new_and_old(run)
+    assert torch.equal(new[0], old[0])
+    assert new[2] == old[2] == _fused_counts(spec, batch)
+    assert [n for n, _ in new[1]] == [n for n, _ in old[1]]
+    assert len(new[1]) == expected_fused(spec, batch)[0]
+    for (_, got), (_, want) in zip(new[1], old[1]):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            if isinstance(a, torch.Tensor):
+                assert (a.dtype, a.shape, a.stride()) == (b.dtype, b.shape, b.stride())
+                assert torch.equal(a, b)
+            else:
+                assert a == b
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+def test_one_device_test_routes_every_kernel_family(on_card, monkeypatch):
+    """``fused.on_card`` alone moves the ViT chains and the ResNet chains
+    onto the kernels' route (the stand-in launches) or off it: no family
+    has a hook of its own."""
+    names = []
+    monkeypatch.setattr(fused, "on_card", lambda x: on_card)
+    monkeypatch.setattr(fused, "launch", lambda name, device, args, counter: names.append(name))
+    x = _act()
+    with torch.no_grad():
+        tower.layer_norm(x.permute(0, 2, 3, 1).contiguous(), torch.ones(16), torch.zeros(16))
+        tower.bias_cast(torch.randn(4, 16), torch.zeros(16), torch.bfloat16)
+        rn_epilogue.bn_relu(x, torch.ones(16), torch.zeros(16))
+        rn_epilogue.avg_pool(x, 2)
+    assert names == (["layer_norm", "bias_cast", "rn_bn_relu", "rn_avg_pool"] if on_card else [])

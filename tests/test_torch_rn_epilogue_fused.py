@@ -3,7 +3,8 @@ against their plain chains on the card, bit for bit: each of the five at
 every (channels, size) that RN50x64 at 448 px gives it, at an odd size
 (floor pooling), and with NaN, infinities and signed zeros in the inputs
 and the affine; the RN50x64 and RN50 towers fused against plain; and the
-wrappers' refusals.
+chains' refusals on the kernel's route, and a float32 conv output on the
+plain ops.
 
 Imports neither JAX nor the JAX package, so the file also runs on a GPU
 machine without them (``python -m pytest --noconftest -m gpu
@@ -15,9 +16,8 @@ import torch
 
 from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
 from evossearch_tpu_torch.models import resnet
-from evossearch_tpu_torch.ops import rn_epilogue
+from evossearch_tpu_torch.ops import fused, rn_epilogue
 from evossearch_tpu_torch.utils import Counters
-from evossearch_tpu_torch.ops import tower
 
 BF = torch.bfloat16
 BATCH = 2
@@ -78,7 +78,7 @@ def _same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
 
 
 def _launched(call) -> torch.Tensor:
-    with tower.counting(Counters()) as c, torch.no_grad():
+    with fused.counting(Counters()) as c, torch.no_grad():
         out = call()
     torch.cuda.synchronize()
     snap = c.snapshot()
@@ -129,7 +129,7 @@ def test_bn_bn_add_relu_bit_equal(c, h, w, special):
     _need_gpu()
     x, y = activation(c, h, w, c + h + 4, special), activation(c, h, w, c + h + 5, special)
     (s, b), (s2, b2) = affine(c, c + 3, special), affine(c, c + 4, special)
-    _same_bits(_launched(lambda: rn_epilogue.bn_bn_add_relu(x, s, b, y, s2, b2)),
+    _same_bits(_launched(lambda: rn_epilogue.bn_bn_add_relu(x, s, b, lambda: (y, s2, b2))),
                rn_epilogue.bn_bn_add_relu_plain(x, s, b, y, s2, b2))
 
 
@@ -174,15 +174,15 @@ def test_tower_fused_equals_plain(name, monkeypatch):
     spec = CLIP_MODEL_SPECS[name]
     images = torch.randn(4, spec.image_size, spec.image_size, 3, generator=_gen(5),
                          device="cuda")
-    with torch.no_grad(), tower.counting(Counters()) as c:
-        fused = model(images, BF)
+    with torch.no_grad(), fused.counting(Counters()) as c:
+        kernels = model(images, BF)
     snap = c.snapshot()
     assert snap[rn_epilogue.FUSED] > 0 and rn_epilogue.PLAIN_CUDA not in snap
-    monkeypatch.setattr(rn_epilogue, "use_kernel", lambda *a: False)
+    monkeypatch.setattr(fused, "on_card", lambda x: False)
     with torch.no_grad():
         plain = model(images, BF)
-    assert bool(torch.isfinite(fused).all())
-    assert torch.equal(fused, plain)
+    assert bool(torch.isfinite(kernels).all())
+    assert torch.equal(kernels, plain)
 
 
 @pytest.mark.gpu
@@ -192,7 +192,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     s, b = affine(64, 1)
     bad = {
         "channels-last": x.contiguous(),  # NCHW-contiguous
-        "bfloat16": x.float(),
         "multiple of 8": activation(60, 8, seed=2),
         "aligned": torch.empty(BATCH * 8 * 8 * 64 + 1, dtype=BF, device="cuda")[1:]
         .view(BATCH, 8, 8, 64).permute(0, 3, 1, 2),
@@ -203,7 +202,25 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
             for call in (lambda: rn_epilogue.bn_relu(t, s[:c], b[:c]),
                          lambda: rn_epilogue.bn_relu(t, s[:c], b[:c], 2),
                          lambda: rn_epilogue.bn_add_relu(t, s[:c], b[:c], t),
-                         lambda: rn_epilogue.bn_bn_add_relu(t, s[:c], b[:c], t, s[:c], b[:c]),
+                         lambda: rn_epilogue.bn_bn_add_relu(t, s[:c], b[:c],
+                                                            lambda: (t, s[:c], b[:c])),
                          lambda: rn_epilogue.avg_pool(t, 2)):
                 with pytest.raises(ValueError, match=what):
                     call()
+        # a float32 residual or shortcut beside a bf16 conv output is refused
+        with pytest.raises(ValueError, match="bfloat16"):
+            rn_epilogue.bn_add_relu(x, s, b, x.float())
+        with pytest.raises(ValueError, match="bfloat16"):
+            rn_epilogue.bn_bn_add_relu(x, s, b, lambda: (x.float(), s, b))
+    # a float32 conv output is the plain route's: the plain ops, counted
+    xf = x.float()
+    with torch.no_grad(), fused.counting(Counters()) as c:
+        got = {"bn_relu": rn_epilogue.bn_relu(xf, s, b),
+               "bn_add_relu": rn_epilogue.bn_add_relu(xf, s, b, xf),
+               "bn_bn_add_relu": rn_epilogue.bn_bn_add_relu(xf, s, b, lambda: (xf, s, b)),
+               "avg_pool": rn_epilogue.avg_pool(xf, 2)}
+    assert c.snapshot()[rn_epilogue.PLAIN_CUDA] == 4 and rn_epilogue.FUSED not in c.snapshot()
+    assert torch.equal(got["bn_relu"], rn_epilogue.bn_relu_plain(xf, s, b))
+    assert torch.equal(got["bn_add_relu"], rn_epilogue.bn_add_relu_plain(xf, s, b, xf))
+    assert torch.equal(got["bn_bn_add_relu"], rn_epilogue.bn_bn_add_relu_plain(xf, s, b, xf, s, b))
+    assert torch.equal(got["avg_pool"], rn_epilogue.avg_pool_plain(xf, 2))

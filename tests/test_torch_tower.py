@@ -18,7 +18,7 @@ import torch
 
 from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
 from evossearch_tpu_torch.models import CLIP, encode_image, encode_text, layers
-from evossearch_tpu_torch.ops import _build, tower
+from evossearch_tpu_torch.ops import _build, fused, tower
 from evossearch_tpu_torch.train.contrastive import clip_loss
 from evossearch_tpu_torch.utils import Counters
 
@@ -164,10 +164,12 @@ def test_towers_equal_the_old_code(dtype, monkeypatch):
 # -- the dispatch -----------------------------------------------------------------
 
 
-def _fake_launch(name, device, args):
+def _fake_launch(name, device, args, counter):
     """The kernels' entry points computed by their plain versions from the
     arguments the wrappers pass (rows, widths, scale, causal flag), writing
-    into the wrapper's output as a kernel would."""
+    into the wrapper's output as a kernel would, counted as
+    ``fused.launch`` counts."""
+    assert counter == tower.FUSED
     if name in ("bias_cast", "bias_gelu_cast"):
         y, bias, out, m, n = args
         plain = tower.bias_cast_plain if name == "bias_cast" else tower.bias_gelu_cast_plain
@@ -182,14 +184,14 @@ def _fake_launch(name, device, args):
         assert rows % t == 0 and causal in (0, 1)
         out.view(-1, t, t).copy_(tower.softmax_cast_plain(
             logits.view(-1, t, t), scale, bool(causal), torch.bfloat16))
-    tower._count(tower.FUSED)
+    fused.count(counter)
 
 
 @pytest.fixture
 def card(monkeypatch):
     """Every tensor counts as on the card; launches run ``_fake_launch``."""
-    monkeypatch.setattr(tower, "_on_card", lambda x: True)
-    monkeypatch.setattr(tower, "_launch", _fake_launch)
+    monkeypatch.setattr(fused, "on_card", lambda x: True)
+    monkeypatch.setattr(fused, "launch", _fake_launch)
 
 
 def _no_build(*args, **kwargs):
@@ -217,7 +219,7 @@ def _calls():
 def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
     monkeypatch.setattr(_build, "entry", _no_build)
     wrapper, plain = _calls()[name]
-    with tower.counting(Counters()) as counters:
+    with fused.counting(Counters()) as counters:
         for dtype in DTYPES.values():
             assert torch.equal(wrapper(dtype), plain(dtype))
     assert counters.snapshot() == {}
@@ -229,17 +231,17 @@ def test_card_route_by_compute_dtype_and_autograd(name, card):
     under autograd, take the plain version and count it."""
     wrapper, plain = _calls()[name]
     c = Counters()
-    with tower.counting(c), torch.no_grad():
+    with fused.counting(c), torch.no_grad():
         assert torch.equal(wrapper(torch.bfloat16), plain(torch.bfloat16))
     assert c.snapshot() == {tower.FUSED: 1.0}
-    with tower.counting(c):
+    with fused.counting(c):
         assert torch.equal(wrapper(torch.float32), plain(torch.float32))
     assert c.snapshot() == {tower.FUSED: 1.0, tower.PLAIN_CUDA: 1.0}
-    with tower.counting(c):  # grad mode on, but no operand requires grad
+    with fused.counting(c):  # grad mode on, but no operand requires grad
         assert torch.equal(wrapper(torch.bfloat16), plain(torch.bfloat16))
     assert c.snapshot() == {tower.FUSED: 2.0, tower.PLAIN_CUDA: 1.0}
     model = _model()
-    with tower.counting(c):
+    with fused.counting(c):
         block = model.visual.blocks[0]
         x = torch.randn(2, 5, TINY.vision_width).to(torch.bfloat16)
         out = {"bias_cast": lambda: layers._dense(x, block.attn.wo, block.attn.bo),
@@ -248,7 +250,9 @@ def test_card_route_by_compute_dtype_and_autograd(name, card):
                "softmax_cast": lambda: block.attn(x)}[name]()
     assert out.requires_grad and out.dtype == torch.bfloat16
     assert c.snapshot()[tower.FUSED] == 2.0 and c.snapshot()[tower.PLAIN_CUDA] > 1.0
-    assert tower._sink.counters is None
+    before = c.snapshot()
+    fused.count(tower.FUSED)  # outside ``counting``: the sink is gone
+    assert c.snapshot() == before
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -258,14 +262,14 @@ def test_simulated_card_towers_equal_the_cpu_towers(dtype, card):
     chain (7 a block, and ln_pre + ln_post or ln_final), float32 launches
     nothing and counts each chain as a plain call on the card."""
     model, (images, tokens) = _model(), _inputs()
-    with tower.counting(Counters()) as c:
+    with fused.counting(Counters()) as c:
         got_img = encode_image(model, images, DTYPES[dtype])
         got_txt = encode_text(model, tokens, DTYPES[dtype])
     chains = 7 * (TINY.vision_layers + TINY.text_layers) + 3
     key = tower.FUSED if dtype == "bf16" else tower.PLAIN_CUDA
     assert c.snapshot() == {key: float(chains)}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tower, "_on_card", lambda x: False)
+        mp.setattr(fused, "on_card", lambda x: False)
         want_img = encode_image(model, images, DTYPES[dtype])
         want_txt = encode_text(model, tokens, DTYPES[dtype])
     assert torch.equal(got_img, want_img) and torch.equal(got_txt, want_txt)
@@ -324,12 +328,12 @@ def test_training_loss_and_gradients_unchanged(dtype, card):
         loss.backward()
         return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
 
-    with tower.counting(Counters()) as c:
+    with fused.counting(Counters()) as c:
         got = loss_and_grads(_model(8))
     snap = c.snapshot()
     assert tower.FUSED not in snap and snap[tower.PLAIN_CUDA] > 0
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tower, "_on_card", lambda x: False)
+        mp.setattr(fused, "on_card", lambda x: False)
         cpu = loss_and_grads(_model(8))
         mp.setattr(layers, "tower", _OldTower)
         old = loss_and_grads(_model(8))
@@ -353,7 +357,7 @@ def test_engine_counts_its_tower_calls(card):
         engine.encode_text("a red car")
         assert engine.counters.snapshot()[tower.FUSED] == 7 * TINY.text_layers + 1
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(tower, "_on_card", lambda x: False)
+            mp.setattr(fused, "on_card", lambda x: False)
             engine.encode_text("a blue car")
         assert engine.counters.snapshot()[tower.FUSED] == 7 * TINY.text_layers + 1
         assert tower.PLAIN_CUDA not in engine.counters.snapshot()

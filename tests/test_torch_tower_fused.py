@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from evossearch_tpu_torch.core import CLIP_MODEL_SPECS
-from evossearch_tpu_torch.ops import tower
+from evossearch_tpu_torch.ops import fused, tower
 from evossearch_tpu_torch.utils import Counters
 
 L14 = CLIP_MODEL_SPECS["ViT-L/14"]
@@ -61,17 +61,17 @@ def gemm_like(m: int, n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
 def test_bias_kernels_bit_equal(m, n, gelu):
     _need_gpu()
     y, bias = gemm_like(m, n, seed=m + n)
-    fused = tower.bias_gelu_cast if gelu else tower.bias_cast
+    wrapper = tower.bias_gelu_cast if gelu else tower.bias_cast
     plain = tower.bias_gelu_cast_plain if gelu else tower.bias_cast_plain
-    with tower.counting(Counters()) as c, torch.no_grad():
-        got = fused(y, bias, BF)
+    with fused.counting(Counters()) as c, torch.no_grad():
+        got = wrapper(y, bias, BF)
     want = plain(y, bias, BF)
     torch.cuda.synchronize()
     assert c.snapshot() == {tower.FUSED: 1.0}
     assert got.dtype == BF and got.shape == (m, n)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     # a leading batch dim, as the towers call it
-    got3 = fused(y.view(1, m, n), bias, BF)
+    got3 = wrapper(y.view(1, m, n), bias, BF)
     assert got3.shape == (1, m, n) and torch.equal(got3.view(m, n).view(torch.int16),
                                                    want.view(torch.int16))
 
@@ -86,7 +86,7 @@ def test_layer_norm_within_one_ulp(width):
          + torch.randn(rows, 1, generator=g, device="cuda") * 5).to(BF)
     scale = 1 + torch.randn(width, generator=g, device="cuda") * 0.2
     bias = torch.randn(width, generator=g, device="cuda") * 0.1
-    with tower.counting(Counters()) as c:
+    with fused.counting(Counters()) as c:
         got = tower.layer_norm(x, scale, bias)
     want = tower.layer_norm_plain(x, scale, bias)
     torch.cuda.synchronize()
@@ -103,7 +103,7 @@ def test_softmax_cast_within_one_ulp(t, batch, heads, causal):
     g = _gen(t)
     logits = torch.randn(batch, heads, t, t, generator=g, device="cuda") * 24
     scale = 64 ** -0.5
-    with tower.counting(Counters()) as c:
+    with fused.counting(Counters()) as c:
         got = tower.softmax_cast(logits, scale, causal, BF)
     want = tower.softmax_cast_plain(logits, scale, causal, BF)
     torch.cuda.synchronize()
@@ -133,13 +133,13 @@ def test_l14_towers_fused_against_plain(monkeypatch):
     tokens = torch.randint(1, 49000, (8, L14.context_length), generator=g, device="cuda")
     tokens[:, 20:] = 0
     tokens[:, 19] = 49407
-    with tower.counting(Counters()) as c:
-        fused = _towers(model, images, tokens)
+    with fused.counting(Counters()) as c:
+        kernels = _towers(model, images, tokens)
     chains = 7 * (L14.vision_layers + L14.text_layers) + 3
     assert c.snapshot() == {tower.FUSED: float(chains)}
-    monkeypatch.setattr(tower, "_on_card", lambda x: False)
+    monkeypatch.setattr(fused, "on_card", lambda x: False)
     plain = _towers(model, images, tokens)
-    for f, p in zip(fused, plain):
+    for f, p in zip(kernels, plain):
         gap = 1 - (f.double() * p.double()).sum(-1)
         assert float(gap.max()) <= 2e-5, float(gap.max())
 
